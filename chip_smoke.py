@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
-Builds the port's kernels from the sources in this checkout (nvcc for the
-CUDA C++ kernels K1 and K3, Triton for K0), then:
+Builds the port's kernels from the sources in this checkout (one nvcc per
+CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
 
 * ``whatif``: the main path at full width — a design-continuum question
   (``repro_torch.core.whatif.workload_sweep``) over the depth-4
@@ -13,9 +13,19 @@ CUDA C++ kernels K1 and K3, Triton for K0), then:
   fused totals held against the scalar oracle on a fixed cell sample
   (1e-6 relative) and the argmins against the grouped engine; then the
   same on a profile with a knn model, so K0 runs its top-4 path.
-* ``kvstore``: the sorted-array and hash-table stores of
-  ``examples/kv_store.py`` at 2^24 keys and 2^20 queries (half present),
-  checked against a numpy oracle.
+* ``kvstore``: the three stores of ``examples/kv_store.py``: sorted array
+  (K1) and hash table (K3) at 2^24 keys and 2^20 queries, and the log with
+  a bloom filter (K4 skips misses, K2 scans the log for the rest) at 2^20
+  keys and 2^16 queries; half of each query set present, checked against
+  a numpy oracle.
+* ``lm``: qwen2-1.5b at its published widths (28 layers, random weights
+  from ``--seed``, float32 parameters, bf16 compute, flash attention) serves
+  4 prompts of 2,048 tokens: the fused prefill (K5) and 32 greedy decode
+  steps through ``repro_torch.launch.serve.serve_batch``; the prefill is
+  held against the plain chunked-attention path on the same weights
+  (float32 compute: logits and KV cache within 5e-2; bf16 compute: no
+  further from the float32 logits than the plain path); one prefill and
+  four decode steps are traced with ``torch.profiler``.
 * ``kernels``: every kernel against its plain PyTorch version on the
   card, at the phases' shapes plus ragged ones, with times and bounds.
 
@@ -39,20 +49,40 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor)
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor),
+#: bf16 dense tensor cores; INT32 throughput from the Hopper white paper:
+#: 64 INT32 lanes per SM x 132 SMs x the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+PEAKS = {"fp32": FP32_OPS_PER_S, "bf16_tensor": BF16_TC_OPS_PER_S,
+         "int32": INT32_OPS_PER_S}
 
 #: float32 operations K0 spends per (record, workload) cell of a profile
 #: without knn models: clip 2, two logs, the 4-feature basis 8, four
 #: sigmoids at 7 each, select and weight 4
 K0_OPS_PER_CELL = 2 + 2 + 8 + 4 * 7 + 4
 
+#: integer operations K2 spends per (key, query) pair: the equality
+#: compare, the two bound compares and the count add
+K2_OPS_PER_PAIR = 4
+
 N_POINTS = 64
 DEPTH = 4
 SCALAR_SAMPLE = 128
 KV_N, KV_Q = 1 << 24, 1 << 20
 HASH_S, HASH_CAP = 21, 32
+#: the log+bloom store: a log is an unsorted column that Get scans, O(N Q)
+#: by the reference's design (that is what a log costs), so it holds 2^20
+#: keys where the sorted and hash stores hold 2^24; a 2^24-bit (2 MB)
+#: filter, 16 bits a key, with k = 3 hashes as examples/kv_store.py uses
+LOG_N, LOG_Q = 1 << 20, 1 << 16
+BLOOM_S, BLOOM_K = 24, 3
+#: the lm phase: 4 prompts of 2,048 tokens, then 32 decode steps
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+#: the reference's flash-vs-xla tolerance (tests/test_arch_smoke.py)
+LM_TOL = 5e-2
 DEVICE = "cuda"
 
 
@@ -172,30 +202,43 @@ def phase_whatif(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # kvstore: the sorted-array and hash-table stores
 # ---------------------------------------------------------------------------
-def kv_data(seed: int):
-    rng = np.random.default_rng(seed + 1)
-    keys = rng.choice(1 << 30, KV_N, replace=False).astype(np.int32)
-    values = rng.integers(1, 1 << 30, KV_N).astype(np.int32)
-    present = rng.choice(KV_N, KV_Q // 2, replace=False)
-    absent = rng.integers(1 << 30, (1 << 31) - 1, KV_Q // 2)
-    perm = rng.permutation(KV_Q)
+def _store_data(rng, n: int, q: int) -> dict:
+    """n distinct int32 keys below 2^30 with values, q queries of which
+    half are keys and half are drawn above the key range."""
+    keys = rng.choice(1 << 30, n, replace=False).astype(np.int32)
+    values = rng.integers(1, 1 << 30, n).astype(np.int32)
+    present = rng.choice(n, q // 2, replace=False)
+    absent = rng.integers(1 << 30, (1 << 31) - 1, q // 2)
+    perm = rng.permutation(q)
     queries = np.concatenate([keys[present], absent]).astype(np.int32)[perm]
-    exp_found = np.concatenate([np.ones(KV_Q // 2, bool),
-                                np.zeros(KV_Q // 2, bool)])[perm]
+    exp_found = np.concatenate([np.ones(q // 2, bool),
+                                np.zeros(q // 2, bool)])[perm]
     exp_vals = np.concatenate([values[present],
-                               np.zeros(KV_Q // 2, np.int32)])[perm]
+                               np.zeros(q // 2, np.int32)])[perm]
     return {"keys": keys, "values": values, "queries": queries,
             "found": exp_found, "vals": exp_vals}
+
+
+def kv_data(seed: int):
+    data = _store_data(np.random.default_rng(seed + 1), KV_N, KV_Q)
+    data["log"] = _store_data(np.random.default_rng(seed + 3), LOG_N, LOG_Q)
+    return data
 
 
 def phase_kvstore(data) -> dict:
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.bloom_probe.ops import (DEFAULT_COEFFS,
+                                                     bloom_probe,
+                                                     build_filter,
+                                                     filter_words)
     from repro_torch.kernels.hash_probe.ops import (DEFAULT_A, build_table,
                                                     hash_probe)
     from repro_torch.kernels.hash_probe.ref import EMPTY_KEY
+    from repro_torch.kernels.scan_filter.ops import scan_get
     from repro_torch.kernels.sorted_search.ops import sorted_get
     keys, values, queries = data["keys"], data["values"], data["queries"]
+    lg = data["log"]
     t0 = time.perf_counter()
     order = np.argsort(keys)
     sk = torch.as_tensor(keys[order], device=DEVICE)
@@ -206,11 +249,24 @@ def phase_kvstore(data) -> dict:
     tk_t = torch.as_tensor(tk, device=DEVICE)
     tv_t = torch.as_tensor(tv, device=DEVICE)
     q_t = torch.as_tensor(queries, device=DEVICE)
+    words = build_filter(lg["keys"], DEFAULT_COEFFS[:BLOOM_K], BLOOM_S)
+    lg["words"] = words
+    w_t = filter_words(words, DEVICE)
+    lk_t = torch.as_tensor(lg["keys"], device=DEVICE)
+    lv_t = torch.as_tensor(lg["values"], device=DEVICE)
+    lq_t = torch.as_tensor(lg["queries"], device=DEVICE)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     reset_launch_counts()
     found_s, val_s = sorted_get(sk, sv, q_t)
     found_h, val_h = hash_probe(tk_t, tv_t, q_t, s=HASH_S)
+    t0 = time.perf_counter()
+    maybe = bloom_probe(w_t, lq_t, s=BLOOM_S, num_hashes=BLOOM_K)
+    passed = lq_t[maybe]                          # a ragged count
+    found_l, val_l = scan_get(lk_t, lv_t, passed)
+    torch.cuda.synchronize()
+    log_s = time.perf_counter() - t0
     launches = launch_counts()
 
     out = {"n_keys": KV_N, "n_queries": KV_Q, "setup_s": setup_s,
@@ -223,8 +279,190 @@ def phase_kvstore(data) -> dict:
         assert (f == data["found"]).all() and (v == data["vals"]).all(), \
             f"{name} store disagrees with the numpy oracle"
         out[f"{name}_hits"] = hits
-    for k in ("sorted_search", "hash_probe"):
+
+    m = maybe.cpu().numpy()
+    assert m[lg["found"]].all(), "bloom filter: a false negative"
+    f, v = found_l.cpu().numpy(), val_l.cpu().numpy()
+    hits = int(f.sum())
+    assert hits == LOG_Q // 2, f"log+bloom store: {hits} hits"
+    assert (f == lg["found"][m]).all() and (v == lg["vals"][m]).all(), \
+        "log+bloom store disagrees with the numpy oracle"
+    lg["maybe"] = m
+    out["log"] = {"n_keys": LOG_N, "n_queries": LOG_Q,
+                  "filter_bits": 1 << BLOOM_S, "hashes": BLOOM_K,
+                  "log_hits": hits, "bloom_passed": int(m.sum()),
+                  "bloom_false_positives": int(m.sum()) - LOG_Q // 2,
+                  "bloom_skipped_misses": int((~m).sum()),
+                  "misses": LOG_Q // 2, "probe_s": log_s}
+    for k in ("sorted_search", "hash_probe", "bloom_probe", "scan_filter"):
         assert launches.get(k, 0) > 0, f"{k} never launched"
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lm: qwen2-1.5b prefill (K5) and greedy decode
+# ---------------------------------------------------------------------------
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _within(a, b, tol: float) -> bool:
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def _profile(fn, steps: int) -> dict:
+    """torch.profiler over ``steps`` calls of ``fn``: device and host time
+    per call, and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # device work is counted on the kernels' own (CUDA) events only: the
+    # operator events that launched them report the same time again
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    device_us = sum(dev(e) for e in kernels)
+    host_us = sum(e.self_cpu_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU)
+    top = sorted(kernels, key=dev, reverse=True)[:8]
+    # (the host time is inflated by the profiler's own work)
+    return {"steps": steps, "device_ms_per_step": device_us / 1e3 / steps,
+            "host_ms_per_step": host_us / 1e3 / steps,
+            "top_kernels_ms_per_step": {
+                e.key[:60]: dev(e) / 1e3 / steps for e in top},
+            "launches_per_step": sum(
+                e.count for e in events if e.key == "cudaLaunchKernel") /
+            steps}
+
+
+def phase_lm(seed: int) -> dict:
+    import dataclasses
+    import torch
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    from repro_torch.train.serve import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(qwen2_1_5b.config(), attn_impl="flash")
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 4)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    max_len = LM_PROMPT + LM_DECODE
+    # warm cuBLAS and the kernel once, so the timed run is the steady one
+    serve_batch(cfg, prompts[:, :128], 2, params=params, log=lambda _: None)
+
+    reset_launch_counts()
+    run = serve_batch(cfg, prompts, LM_DECODE + 1, params=params,
+                      max_len=max_len, log=log)
+    launches = launch_counts()
+    repeat = serve_batch(cfg, prompts, LM_DECODE + 1, params=params,
+                         max_len=max_len, log=lambda _: None)
+
+    tokens = run["tokens"]
+    assert launches.get("flash_attention", 0) == cfg.n_layers, \
+        f"K5 launched {launches.get('flash_attention', 0)} times in one " \
+        f"prefill, expected {cfg.n_layers}"
+    assert tokens.shape == (LM_BATCH, LM_DECODE + 1), tokens.shape
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+    assert (tokens == repeat["tokens"]).all(), "a repeat run gave other tokens"
+    assert torch.isfinite(run["prefill_logits"].float()).all()
+
+    # the prefill against the plain path (chunked attention, no kernel),
+    # with the same weights: in float32 compute, where the two differ only
+    # by the kernel's arithmetic, within the reference's flash-vs-xla
+    # tolerance; in bf16 compute (the served run) bf16 rounding of the
+    # whole 28-layer model moves both paths as far from the float32
+    # logits as they are from each other, so there the flash path must be
+    # no further from the float32 logits than the plain path is
+    prompt_t = torch.as_tensor(prompts, device=DEVICE)
+    res = {}
+    with torch.no_grad():
+        for impl in ("flash", "xla"):
+            for dtype in ("float32", "bfloat16"):
+                m = build(dataclasses.replace(cfg, attn_impl=impl,
+                                              compute_dtype=dtype))
+                logits, cache = make_prefill_step(m, max_len)(params,
+                                                              prompt_t)
+                res[impl, dtype] = (logits.float(), cache)
+    torch.cuda.synchronize()
+    truth = res["xla", "float32"][0]
+
+    def rms(a, b):
+        return float((a.float() - b.float()).pow(2).mean().sqrt())
+
+    f32 = {"logits_max_abs": _max_abs(res["flash", "float32"][0], truth)}
+    for name in ("k", "v"):
+        f32[f"cache_{name}_max_abs"] = _max_abs(
+            res["flash", "float32"][1][name], res["xla", "float32"][1][name])
+    bf16 = {"flash_vs_plain_max_abs": _max_abs(res["flash", "bfloat16"][0],
+                                               res["xla", "bfloat16"][0]),
+            "flash_vs_plain_rms": rms(res["flash", "bfloat16"][0],
+                                      res["xla", "bfloat16"][0])}
+    for impl in ("flash", "xla"):
+        bf16[f"{impl}_vs_float32_max_abs"] = _max_abs(
+            res[impl, "bfloat16"][0], truth)
+        bf16[f"{impl}_vs_float32_rms"] = rms(res[impl, "bfloat16"][0], truth)
+    for name in ("k", "v"):
+        bf16[f"cache_{name}_flash_vs_plain_max_abs"] = _max_abs(
+            res["flash", "bfloat16"][1][name], res["xla", "bfloat16"][1][name])
+    out = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}",
+           "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "decode_steps": LM_DECODE,
+           "init_s": init_s, "prefill_s": run["prefill_s"],
+           "decode_s": run["decode_s"],
+           "decode_tok_s": LM_BATCH * LM_DECODE / run["decode_s"],
+           "prefill_tok_s": LM_BATCH * LM_PROMPT / run["prefill_s"],
+           "launches": launches, "float32_compute": f32,
+           "bfloat16_compute": bf16, "same_tokens_on_repeat": True,
+           "first_tokens": tokens[:, :8].tolist()}
+    assert _max_abs(res["flash", "bfloat16"][0], run["prefill_logits"]) == 0
+    f_res, x_res = res["flash", "float32"], res["xla", "float32"]
+    assert _within(f_res[0], x_res[0], LM_TOL), \
+        f"flash vs plain prefill logits (float32 compute): {f32}"
+    for name in ("k", "v"):
+        assert _within(f_res[1][name], x_res[1][name], LM_TOL), \
+            f"flash vs plain prefill cache {name} (float32 compute): {f32}"
+    assert bf16["flash_vs_float32_rms"] <= 1.25 * bf16["xla_vs_float32_rms"], \
+        f"bf16 flash prefill further from float32 than the plain path: {bf16}"
+    # where the time goes: a trace of one prefill and four decode steps
+    del res
+    prefill = make_prefill_step(model, max_len)
+    step = make_serve_step(model)
+    with torch.no_grad():
+        logits, cache = prefill(params, prompt_t)
+        token = logits.argmax(-1).to(torch.int32)
+        pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
+                         device=DEVICE)
+        step(params, cache, token, pos)
+        out["profile_prefill"] = _profile(lambda: prefill(params, prompt_t),
+                                          1)
+        out["profile_decode"] = _profile(
+            lambda: step(params, cache, token, pos), 4)
+    # device-busy shares: traced device time over the untraced run's
+    # host-clock time of the same work
+    out["prefill_device_busy_share"] = (
+        out["profile_prefill"]["device_ms_per_step"] /
+        (run["prefill_s"] * 1e3))
+    out["decode_device_busy_share"] = (
+        out["profile_decode"]["device_ms_per_step"] /
+        (run["decode_s"] * 1e3 / LM_DECODE))
     return out
 
 
@@ -310,7 +548,7 @@ def kernel_k0(frontier, workloads, mixes, rng, launches) -> dict:
                 "src/repro/core/devicecost.py:328 (bank_predict, "
                 "_score_kernel :369, _sweep_kernel :384)",
                 launches.get("bank_score", 0), worst_abs, ms, plain_ms,
-                n_bytes, n_ops, None,
+                n_bytes, n_ops, "fp32", None,
                 {"max_rel_err": worst_rel,
                  "shape": f"W={w_axis} R={r} segments={n_seg}"})
 
@@ -372,7 +610,7 @@ def kernel_k1(data, rng, launches) -> dict:
                 "src/repro/kernels/sorted_search/kernel.py:45 "
                 "(sorted_search_kernel, _search_kernel :31)",
                 launches.get("sorted_search", 0), 0.0, ms, plain_ms,
-                n_bytes, n_ops, library_ms,
+                n_bytes, n_ops, "int32", library_ms,
                 {"shape": f"N={len(keys)} Q={n_q}",
                  "keys_touched": touched, "sorted_get_ms": get_ms,
                  "sorted_get_plain_ms": get_plain_ms})
@@ -420,19 +658,176 @@ def kernel_k3(data, rng, launches) -> dict:
                 "src/repro/kernels/hash_probe/kernel.py:69 "
                 "(hash_probe_kernel, _probe_kernel :40)",
                 launches.get("hash_probe", 0), 0.0, ms, plain_ms, n_bytes,
-                n_q * 2 * HASH_CAP, None,
+                n_q * 2 * HASH_CAP, "int32", None,
                 {"shape": f"table=[2^{HASH_S},{HASH_CAP}] Q={n_q}"})
 
 
+def kernel_k2(data, rng, launches) -> dict:
+    import torch
+    from repro_torch.kernels.scan_filter import kernel, ref
+    lg = data["log"]
+    keys = torch.as_tensor(lg["keys"], device=DEVICE)
+    passed = torch.as_tensor(lg["queries"][lg["maybe"]], device=DEVICE)
+    main = (keys, passed, passed, passed)        # scan_get's call
+    cases = [main]
+    for n, q, dtype in ((1500, 100, np.int32), (300_001, 4097, np.int32),
+                        (128, 770, np.float32), (100_003, 999, np.float32)):
+        k = rng.integers(0, 1 << 16, n).astype(dtype)
+        qq = rng.integers(0, 1 << 16, q).astype(dtype)
+        qq[: q // 2] = k[rng.integers(0, n, q // 2)]
+        if dtype == np.int32:
+            k[-1] = qq[-1] = 2147483647     # a real int32-max key
+        cases.append(tuple(torch.as_tensor(a, device=DEVICE)
+                           for a in (k, qq, qq - 64, qq + 64)))
+    mismatches = 0
+    for args in cases:
+        p1, c1 = kernel.scan_filter_kernel(*args)
+        p2, c2 = ref.scan_filter_ref(*args)
+        mismatches += int((p1 != p2).sum()) + int((c1 != c2).sum())
+    assert mismatches == 0, f"K2 vs plain: {mismatches} mismatches"
+    ms = timed_ms(lambda: kernel.scan_filter_kernel(*main), reps=10)
+    plain_ms = timed_ms(lambda: ref.scan_filter_ref(*main), reps=2,
+                        warmup=1)
+    n, q = keys.shape[0], passed.shape[0]
+    n_bytes = 4 * n + 3 * 4 * q + 2 * 4 * q
+    return _row("K2 scan_filter", "cuda", "src/repro_torch/csrc/scan_filter.cu",
+                "src/repro/kernels/scan_filter/kernel.py:55 "
+                "(scan_filter_kernel, _scan_kernel :30)",
+                launches.get("scan_filter", 0), 0.0, ms, plain_ms, n_bytes,
+                n * q * K2_OPS_PER_PAIR, "int32", None,
+                {"shape": f"N={n} Q={q} (the queries the filter passed)",
+                 "pairs_per_s": n * q / (ms * 1e-3)})
+
+
+def kernel_k4(data, rng, launches) -> dict:
+    import torch
+    from repro_torch.kernels.bloom_probe import kernel, ref
+    from repro_torch.kernels.bloom_probe.ops import DEFAULT_COEFFS
+    lg = data["log"]
+    coeffs = DEFAULT_COEFFS[:BLOOM_K]
+    main = (torch.as_tensor(lg["words"].view(np.int32), device=DEVICE),
+            torch.as_tensor(lg["queries"], device=DEVICE), coeffs, BLOOM_S)
+    cases = [main]
+    for s, k, q in ((13, 1, 1000), (16, 4, 4097), (5, 2, 7), (20, 5, 33)):
+        keys = rng.choice(1 << 24, 2000, replace=False)
+        words = ref.build_filter(keys, DEFAULT_COEFFS[:k], s)
+        qq = np.concatenate([keys[: q // 2], rng.integers(
+            -2**31, 2**31, q - q // 2)]).astype(np.int32)[:q]
+        cases.append((torch.as_tensor(words.view(np.int32), device=DEVICE),
+                      torch.as_tensor(qq, device=DEVICE), DEFAULT_COEFFS[:k],
+                      s))
+    mismatches = 0
+    for args in cases:
+        mismatches += int((kernel.bloom_probe_kernel(*args)
+                           != ref.bloom_hits_ref(*args)).sum())
+    assert mismatches == 0, f"K4 vs plain: {mismatches} mismatches"
+    ms = timed_ms(lambda: kernel.bloom_probe_kernel(*main))
+    plain_ms = timed_ms(lambda: ref.bloom_hits_ref(*main))
+    from repro_torch.kernels.bloom_probe.ref import _hashes
+    hv = _hashes(lg["queries"], coeffs, BLOOM_S)
+    sectors = len(np.unique(hv >> 8))           # 32-byte sectors touched
+    n_q = len(lg["queries"])
+    n_bytes = 32 * sectors + 4 * n_q + 4 * n_q * BLOOM_K
+    # per (query, hash): multiply, shift, word index, bit test
+    n_ops = 4 * n_q * BLOOM_K
+    return _row("K4 bloom_probe", "cuda", "src/repro_torch/csrc/bloom_probe.cu",
+                "src/repro/kernels/bloom_probe/kernel.py:52 "
+                "(bloom_probe_kernel, _bloom_kernel :26)",
+                launches.get("bloom_probe", 0), 0.0, ms, plain_ms, n_bytes,
+                n_ops, "int32", None,
+                {"shape": f"filter=2^{BLOOM_S} bits k={BLOOM_K} Q={n_q}",
+                 "sectors_touched": sectors})
+
+
+def _causal_pairs(sq: int, skv: int) -> int:
+    """(row, col) pairs a top-left-aligned causal mask keeps."""
+    rows = np.arange(sq, dtype=np.int64)
+    return int(np.minimum(rows + 1, skv).sum())
+
+
+def _k5_inputs(gen, b, h, kh, sq, skv, d, dtype):
+    """q, k, v in the model's [B, S, H, D] layout, as [B, H, S, D] views."""
+    import torch
+    q = torch.randn((b, sq, h, d), generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn((b, skv, kh, d), generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn((b, skv, kh, d), generator=gen, device=DEVICE).to(dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def kernel_k5(seed, launches) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    b, h, kh, sq, d = LM_BATCH, 12, 2, LM_PROMPT, 128
+    main = _k5_inputs(gen, b, h, kh, sq, sq, d, torch.bfloat16)
+    # (inputs, causal, rtol, atol): bf16 output rounding is 2^-9 relative,
+    # held at 2^-8 plus 1e-4; float32 at 1e-5
+    bf16_tol, f32_tol = (2.0 ** -8, 1e-4), (1e-5, 1e-5)
+    cases = [(main, True) + bf16_tol,
+             (_k5_inputs(gen, 1, h, kh, 1000, 777, d, torch.bfloat16),
+              False) + bf16_tol,
+             (_k5_inputs(gen, 2, h, kh, 1000, 1000, d, torch.float32),
+              True) + f32_tol,
+             (_k5_inputs(gen, 1, 4, 4, 200, 300, 24, torch.float32),
+              False) + f32_tol]
+    errs = []
+    for (q, k, v), causal, rtol, atol in cases:
+        got = kernel.flash_attention_kernel(q, k, v, causal).float()
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        err = (got - want).abs()
+        errs.append(float(err.max()))
+        assert bool((err <= atol + rtol * want.abs()).all()), \
+            f"K5 vs plain {tuple(q.shape)} causal={causal}: max abs " \
+            f"{errs[-1]:.3e}"
+    # the gradient: forward on K5, backward through attention_ref
+    xs = _k5_inputs(gen, 2, 4, 2, 100, 100, 32, torch.float32)
+    w = torch.randn(xs[0].shape, generator=gen, device=DEVICE)
+    ga = [x.detach().clone().requires_grad_(True) for x in xs]
+    (ops.flash_attention(*ga, True) * w).sum().backward()
+    gb = [x.detach().clone().requires_grad_(True) for x in xs]
+    (attention_ref(*gb, causal=True) * w).sum().backward()
+    grad_err = max(_max_abs(x.grad, y.grad) for x, y in zip(ga, gb))
+    assert grad_err <= 1e-4, f"K5 gradient vs plain: {grad_err:.3e}"
+
+    q, k, v = main
+    ms = timed_ms(lambda: kernel.flash_attention_kernel(q, k, v, True),
+                  reps=10)
+    plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=True),
+                        reps=5)
+    qc, kc, vc = (x.contiguous() for x in main)
+    library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), reps=10)
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    n_ops = 4 * b * h * d * _causal_pairs(sq, sq)
+    return _row("K5 flash_attention", "cuda",
+                "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:84 "
+                "(flash_attention_kernel, _flash_kernel :33)",
+                launches.get("flash_attention", 0), errs[0], ms, plain_ms,
+                n_bytes, n_ops, "bf16_tensor", library_ms,
+                {"shape": f"[{b},{h},{sq},{d}] kv_heads={kh} bf16 causal, "
+                          f"[B,S,H,D] strides",
+                 "max_abs_err_cases": errs, "grad_max_abs_err": grad_err,
+                 "tflops": n_ops / (ms * 1e-3) / 1e12,
+                 "library": "torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True, enable_gqa=True)"})
+
+
 def _row(name, route, source, replaces, launches, max_abs_err, ms,
-         plain_ms, n_bytes, n_ops, library_ms, extra) -> dict:
+         plain_ms, n_bytes, n_ops, ops_peak, library_ms, extra) -> dict:
+    """One line of the kernels table.  The bound is the larger of the
+    bytes over HBM bandwidth and the operations over the peak of their
+    type (``ops_peak``, a key of PEAKS)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / PEAKS[ops_peak] * 1e3
     row = {"name": name, "route": route, "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": max_abs_err, "ms": ms, "kernel_ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "ops_peak": ops_peak, "bytes_ms": t_bytes, "ops_ms": t_ops,
            "library_ms": library_ms, "bytes": n_bytes, "ops": n_ops}
     row.update(extra)
     return row
@@ -483,6 +878,16 @@ def main(argv=None) -> int:
     log("kvstore: " + json.dumps(report["kvstore"]))
 
     t0 = time.perf_counter()
+    report["lm"] = phase_lm(args.seed)
+    report["lm"]["phase_s"] = time.perf_counter() - t0
+    lm = report["lm"]
+    log(f"lm prefill: {lm['prefill_s']:.4f} s for {LM_BATCH} x {LM_PROMPT} "
+        f"tokens ({lm['prefill_tok_s']:.0f} tokens/s)")
+    log(f"lm decode: {lm['decode_tok_s']:.1f} tokens/s ({LM_BATCH} x "
+        f"{LM_DECODE} steps in {lm['decode_s']:.4f} s)")
+    log("lm: " + json.dumps(lm))
+
+    t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed + 2)
     frontier = autocomplete.enumerate_frontier((), max_depth=DEPTH)
     workloads = [Workload(n_entries=1_000_000, n_queries=100)] * N_POINTS
@@ -491,7 +896,10 @@ def main(argv=None) -> int:
         kernel_k0(frontier, workloads, mixes, rng,
                   report["whatif"]["launches"]),
         kernel_k1(data, rng, report["kvstore"]["launches"]),
+        kernel_k2(data, rng, report["kvstore"]["launches"]),
         kernel_k3(data, rng, report["kvstore"]["launches"]),
+        kernel_k4(data, rng, report["kvstore"]["launches"]),
+        kernel_k5(args.seed, report["lm"]["launches"]),
     ]
     report["kernels_phase_s"] = time.perf_counter() - t0
     report["total_s"] = time.perf_counter() - t_start

@@ -26,7 +26,10 @@ BUILD_DIR = _PACKAGE.parents[1] / "build" / "kernels"
 
 #: library name -> its source under csrc/
 SOURCES = {"sorted_search": "sorted_search.cu",
-           "hash_probe": "hash_probe.cu"}
+           "hash_probe": "hash_probe.cu",
+           "scan_filter": "scan_filter.cu",
+           "bloom_probe": "bloom_probe.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

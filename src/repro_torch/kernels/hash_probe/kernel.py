@@ -29,17 +29,23 @@ LAUNCHES = counter("hash_probe")
 _MASK32 = 0xFFFFFFFF
 
 
-def multiply_shift(x: torch.Tensor, a: int, s: int) -> torch.Tensor:
-    """Bucket id in [0, 2^s) (int64) of the 32-bit multiply-shift hash.
+def mul_shift32(x: torch.Tensor, a: int, s: int) -> torch.Tensor:
+    """(a x mod 2^32) >> (32 - s) as int64, x wrapped to uint32.
 
     torch has no full uint32 arithmetic, so the product is taken modulo
     2^32 in int64 pieces that never overflow: with a = a_hi 2^16 + a_lo,
     a x = x a_lo + (x a_hi mod 2^16) 2^16  (mod 2^32)."""
     xu = x.to(torch.int64) & _MASK32
-    a = (a | 1) & _MASK32
+    a &= _MASK32
     a_lo, a_hi = a & 0xFFFF, a >> 16
     h = (xu * a_lo + (((xu * a_hi) & 0xFFFF) << 16)) & _MASK32
     return h >> (32 - s)
+
+
+def multiply_shift(x: torch.Tensor, a: int, s: int) -> torch.Tensor:
+    """Bucket id in [0, 2^s) (int64) of the 32-bit multiply-shift hash
+    (the multiplier forced odd)."""
+    return mul_shift32(x, a | 1, s)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,5 @@
 """The port's hand-written kernels against their plain PyTorch versions,
-on the GPU.  Every test here needs a CUDA device (plus nvcc for K1/K3 and
+on the GPU.  Every test here needs a CUDA device (plus nvcc for K1-K5 and
 Triton for K0) and skips, with that reason, where there is none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,9 +15,17 @@ from repro_torch.core.hardware import HardwareProfile
 from repro_torch.core.models import FittedModel
 from repro_torch.core.synthesis import Workload
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.bloom_probe import kernel as bp_kernel
+from repro_torch.kernels.bloom_probe import ref as bp_ref
+from repro_torch.kernels.bloom_probe.ops import DEFAULT_COEFFS
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.hash_probe import kernel as hp_kernel
 from repro_torch.kernels.hash_probe import ref as hp_ref
 from repro_torch.kernels.hash_probe.ops import DEFAULT_A
+from repro_torch.kernels.scan_filter import kernel as sf_kernel
+from repro_torch.kernels.scan_filter import ref as sf_ref
 from repro_torch.kernels.sorted_search import kernel as ss_kernel
 from repro_torch.kernels.sorted_search import ref as ss_ref
 
@@ -122,3 +130,85 @@ def test_fused_engine_on_the_card_matches_grouped(cuda):
     before = devicecost.specialisation_count()
     packed.score(hardware.hw3())
     assert devicecost.specialisation_count() == before
+
+
+@pytest.mark.parametrize("n,q", [(512, 256), (1500, 100), (128, 770),
+                                 (1, 1), (300_001, 4097)])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_scan_filter_kernel_matches_plain(cuda, n, q, dtype):
+    rng = np.random.default_rng(n + q)
+    keys = rng.integers(0, 1 << 16, n).astype(dtype)
+    queries = rng.integers(0, 1 << 16, q).astype(dtype)
+    queries[: q // 2] = keys[rng.integers(0, n, q // 2)]
+    if dtype == np.int32:
+        keys[-1] = queries[-1] = 2147483647        # a real int32-max key
+    args = [torch.as_tensor(a, device=cuda)
+            for a in (keys, queries, queries - 64, queries + 64)]
+    before = launch_counts().get("scan_filter", 0)
+    p1, c1 = sf_kernel.scan_filter_kernel(*args)
+    p2, c2 = sf_ref.scan_filter_ref(*args)
+    torch.testing.assert_close(p1, p2, rtol=0, atol=0)
+    torch.testing.assert_close(c1, c2, rtol=0, atol=0)
+    assert launch_counts()["scan_filter"] == before + 1
+
+
+@pytest.mark.parametrize("s,k,q", [(13, 1, 1000), (16, 4, 4097),
+                                   (24, 3, 65536), (5, 2, 7)])
+def test_bloom_probe_kernel_matches_plain(cuda, s, k, q):
+    rng = np.random.default_rng(s * k)
+    keys = rng.choice(1 << 24, 2000, replace=False)
+    words = bp_ref.build_filter(keys, DEFAULT_COEFFS[:k], s)
+    queries = np.concatenate([keys[: q // 2], rng.integers(
+        -2**31, 2**31, q - q // 2)]).astype(np.int32)[:q]
+    w = torch.as_tensor(words.view(np.int32), device=cuda)
+    qq = torch.as_tensor(queries, device=cuda)
+    before = launch_counts().get("bloom_probe", 0)
+    got = bp_kernel.bloom_probe_kernel(w, qq, DEFAULT_COEFFS[:k], s)
+    want = bp_ref.bloom_hits_ref(w, qq, DEFAULT_COEFFS[:k], s)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert launch_counts()["bloom_probe"] == before + 1
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d", [
+    (1, 1, 1, 128, 128, 32), (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 512, 16),
+    (2, 4, 4, 200, 300, 24), (1, 2, 2, 384, 128, 128), (1, 12, 2, 1000, 777,
+                                                         128),
+    (1, 2, 1, 70, 70, 256), (1, 2, 1, 300, 200, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
+                                              causal, dtype):
+    """Against attention_ref in float32 on the same inputs: float32 to
+    1e-5; bf16 to the rounding of a float32 result to bf16 (2^-8
+    relative) plus 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * skv + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d)))
+    before = launch_counts().get("flash_attention", 0)
+    got = fa_kernel.flash_attention_kernel(q, k, v, causal)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    assert got.dtype == dtype
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
+           dict(rtol=2.0 ** -8, atol=1e-4))
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert launch_counts()["flash_attention"] == before + 1
+    # the model layout through strides, no copy
+    bshd = fa_ops.flash_attention_bshd(q.transpose(1, 2).contiguous(),
+                                       k.transpose(1, 2).contiguous(),
+                                       v.transpose(1, 2).contiguous(), causal)
+    torch.testing.assert_close(bshd.transpose(1, 2), got, rtol=0, atol=0)
+
+
+def test_flash_attention_grad_on_the_card(cuda):
+    """Forward on K5, backward through attention_ref: the gradient equals
+    autograd of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shapes = ((2, 4, 100, 32), (2, 2, 100, 32), (2, 2, 100, 32))
+    xs = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    w = torch.randn(shapes[0], generator=gen, device=cuda)
+    a = [x.clone().requires_grad_(True) for x in xs]
+    (fa_ops.flash_attention(*a, True) * w).sum().backward()
+    b_ = [x.clone().requires_grad_(True) for x in xs]
+    (attention_ref(*b_, causal=True) * w).sum().backward()
+    for x, y in zip(a, b_):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)

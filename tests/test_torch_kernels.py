@@ -1,7 +1,8 @@
-"""Port vs reference: the sorted-array and hash-table store ops on the
-CPU (the kernels' plain versions), against the JAX ops run in Pallas
-interpret mode and against the reference oracles, on the parameter grids
-of tests/test_kernels.py.  Every result must be exactly equal.
+"""Port vs reference: the sorted-array, hash-table and log+bloom store
+ops on the CPU (the kernels' plain versions), against the JAX ops run in
+Pallas interpret mode and against the reference oracles, on the
+parameter grids of tests/test_kernels.py.  Every result must be exactly
+equal.
 """
 import numpy as np
 import pytest
@@ -9,12 +10,19 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels.bloom_probe import kernel as r_bp_kernel
+from repro.kernels.bloom_probe import ops as r_bp_ops, ref as r_bp_ref
 from repro.kernels.hash_probe import kernel as r_hp_kernel
 from repro.kernels.hash_probe import ops as r_hp_ops, ref as r_hp_ref
+from repro.kernels.scan_filter import ops as r_sf_ops, ref as r_sf_ref
 from repro.kernels.sorted_search import ops as r_ss_ops, ref as r_ss_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.bloom_probe import kernel as p_bp_kernel
+from repro_torch.kernels.bloom_probe import ops as p_bp_ops, ref as p_bp_ref
 from repro_torch.kernels.hash_probe import kernel as p_hp_kernel
 from repro_torch.kernels.hash_probe import ops as p_hp_ops, ref as p_hp_ref
+from repro_torch.kernels.scan_filter import kernel as p_sf_kernel
+from repro_torch.kernels.scan_filter import ops as p_sf_ops
 from repro_torch.kernels.sorted_search import kernel as p_ss_kernel
 from repro_torch.kernels.sorted_search import ops as p_ss_ops
 
@@ -158,3 +166,152 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices():
         p_ss_ops.sorted_search(meta, meta)
     with pytest.raises(ValueError):
         p_hp_ops.hash_probe(table.to("meta"), table.to("meta"), meta, s=1)
+
+
+# ---------------------------------------------------------------------------
+# scan filter (K2) and bloom probe (K4): the log+bloom store
+# ---------------------------------------------------------------------------
+INT32_MAX = 2147483647
+
+
+def _scan_both(keys, queries, lo, hi):
+    got = p_sf_ops.scan_filter(*(torch.as_tensor(a)
+                                 for a in (keys, queries, lo, hi)))
+    want = r_sf_ops.scan_filter(*(jnp.asarray(a)
+                                  for a in (keys, queries, lo, hi)),
+                                interpret=True)
+    oracle = r_sf_ref.scan_filter_ref(*(jnp.asarray(a)
+                                        for a in (keys, queries, lo, hi)))
+    for g, w, o in zip(got, want, oracle):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(o))
+    return got
+
+
+@pytest.mark.parametrize("n,q", [(512, 256), (1500, 100), (128, 770)])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_scan_filter_matches_reference(n, q, dtype, rng):
+    keys = rng.integers(0, 1 << 16, n).astype(dtype)
+    queries = rng.integers(0, 1 << 16, q).astype(dtype)
+    queries[: q // 4] = keys[rng.integers(0, n, q // 4)]   # real hits
+    pos, cnt = _scan_both(keys, queries, queries - 64, queries + 64)
+    assert (pos.numpy() != INT32_MAX).sum() >= q // 4
+    assert cnt.numpy().sum() > 0
+
+
+def test_scan_get_finds_first_duplicate():
+    keys = np.asarray([5, 3, 5, 7, 3, 9] * 100, np.int32)
+    values = np.arange(len(keys), dtype=np.int32)
+    queries = np.asarray([5, 3, 11], np.int32)
+    f_p, v_p = p_sf_ops.scan_get(torch.as_tensor(keys),
+                                 torch.as_tensor(values),
+                                 torch.as_tensor(queries))
+    f_r, v_r = r_sf_ops.scan_get(jnp.asarray(keys), jnp.asarray(values),
+                                 jnp.asarray(queries), interpret=True)
+    np.testing.assert_array_equal(f_p.numpy(), np.asarray(f_r))
+    np.testing.assert_array_equal(v_p.numpy(), np.asarray(v_r))
+    assert f_p.tolist() == [True, True, False]
+    assert v_p.tolist()[:2] == [0, 1]   # first occurrences
+
+
+@pytest.mark.parametrize("present", [True, False])
+def test_scan_int32_max_query_never_matches_padding(present, rng):
+    """The reference pads keys with int32 max and masks those hits; the
+    port has no padding.  Either way a query of int32 max finds a real
+    key of that value and nothing else."""
+    keys = rng.integers(0, 1 << 20, 700).astype(np.int32)   # 700 % 512 != 0
+    if present:
+        keys[333] = INT32_MAX
+    queries = np.asarray([INT32_MAX, keys[5], -1], np.int32)
+    lo = np.asarray([INT32_MAX - 1, 0, -5], np.int32)
+    hi = np.full(3, INT32_MAX, np.int32)
+    pos, cnt = _scan_both(keys, queries, lo, hi)
+    assert pos[0] == (333 if present else INT32_MAX)
+    assert cnt[0] == 0          # hi is exclusive: int32 max is never counted
+
+
+@pytest.mark.parametrize("s,k", [(13, 1), (15, 2), (16, 4)])
+def test_bloom_probe_matches_reference(s, k, rng):
+    keys = rng.choice(1 << 24, 2000, replace=False).astype(np.int64)
+    words_r = r_bp_ref.build_filter(keys, r_bp_ops.DEFAULT_COEFFS[:k], s)
+    words = p_bp_ref.build_filter(keys, p_bp_ops.DEFAULT_COEFFS[:k], s)
+    np.testing.assert_array_equal(words, words_r)
+    queries = np.concatenate([keys[:500], rng.integers(1 << 25, 1 << 26,
+                                                       500),
+                              [-1, -2**31]]).astype(np.int32)
+    got = p_bp_ops.bloom_probe(p_bp_ops.filter_words(words),
+                               torch.as_tensor(queries), s=s, num_hashes=k)
+    want = r_bp_ops.bloom_probe(jnp.asarray(words), jnp.asarray(queries),
+                                s=s, num_hashes=k, interpret=True)
+    oracle = r_bp_ref.bloom_probe_ref(words, queries,
+                                      r_bp_ops.DEFAULT_COEFFS[:k], s)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    # the per-hash hits, against the Pallas kernel's own output
+    hits = p_bp_ops.bloom_hits(torch.as_tensor(words.view(np.int32)),
+                               torch.as_tensor(queries[:256]), s=s,
+                               num_hashes=k)
+    hits_r = r_bp_kernel.bloom_probe_kernel(
+        jnp.asarray(words), jnp.asarray(queries[:256]),
+        jnp.asarray(r_bp_ops.DEFAULT_COEFFS[:k]), s=s,
+        block_w=min(256, len(words)), interpret=True)
+    np.testing.assert_array_equal(hits.numpy(), np.asarray(hits_r))
+
+
+def test_bloom_no_false_negatives(rng):
+    """The defining bloom filter property, through the port's op."""
+    keys = rng.choice(1 << 22, 3000, replace=False).astype(np.int64)
+    words = p_bp_ref.build_filter(keys, p_bp_ops.DEFAULT_COEFFS[:3], 16)
+    member = p_bp_ops.bloom_probe(words, torch.as_tensor(
+        keys.astype(np.int32)), s=16, num_hashes=3)
+    assert bool(member.all())
+
+
+def test_log_bloom_store_matches_reference():
+    """examples/kv_store.py's third store at its N=20,000 and Q=512: the
+    bloom filter (s=18, k=3) skips misses and the log is scanned for the
+    rest; both packages pass the same queries and find the same Q/2."""
+    rng = np.random.default_rng(0)
+    n, q, s = 20_000, 512, 18
+    keys = rng.choice(1 << 24, n, replace=False).astype(np.int64)
+    values = rng.integers(1, 1 << 30, n).astype(np.int32)
+    queries = np.concatenate([keys[: q // 2],
+                              rng.integers(1 << 25, 1 << 26, q // 2)]
+                             ).astype(np.int32)
+    words = p_bp_ref.build_filter(keys, p_bp_ops.DEFAULT_COEFFS[:3], s)
+    reset_launch_counts()
+    maybe = p_bp_ops.bloom_probe(words, torch.as_tensor(queries), s=s,
+                                 num_hashes=3)
+    maybe_r = np.asarray(r_bp_ops.bloom_probe(
+        jnp.asarray(words), jnp.asarray(queries), s=s, num_hashes=3,
+        interpret=True))
+    np.testing.assert_array_equal(maybe.numpy(), maybe_r)
+    probe = queries[maybe.numpy()]
+    f_p, v_p = p_sf_ops.scan_get(torch.as_tensor(keys.astype(np.int32)),
+                                 torch.as_tensor(values),
+                                 torch.as_tensor(probe))
+    f_r, v_r = r_sf_ops.scan_get(jnp.asarray(keys.astype(np.int32)),
+                                 jnp.asarray(values), jnp.asarray(probe),
+                                 interpret=True)
+    np.testing.assert_array_equal(f_p.numpy(), np.asarray(f_r))
+    np.testing.assert_array_equal(v_p.numpy(), np.asarray(v_r))
+    assert int(f_p.sum()) == q // 2
+    assert bool(maybe[: q // 2].all())          # no false negatives
+    # CPU tensors take the plain versions: no kernel was launched
+    assert launch_counts().get("bloom_probe", 0) == 0
+    assert launch_counts().get("scan_filter", 0) == 0
+
+
+def test_log_bloom_wrappers_refuse_cpu_and_other_devices():
+    keys = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        p_sf_kernel.scan_filter_kernel(keys, keys, keys, keys)
+    with pytest.raises(ValueError):
+        p_bp_kernel.bloom_probe_kernel(keys, keys,
+                                       p_bp_ops.DEFAULT_COEFFS[:2], 8)
+    meta = keys.to("meta")
+    with pytest.raises(ValueError):
+        p_sf_ops.scan_filter(meta, meta, meta, meta)
+    with pytest.raises(ValueError):
+        p_bp_ops.bloom_probe(meta, meta, s=8)
