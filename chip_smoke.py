@@ -20,8 +20,9 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   a numpy oracle.
 * ``lm``: qwen2-1.5b at its published widths (28 layers, random weights
   from ``--seed``, float32 parameters, bf16 compute, flash attention) serves
-  4 prompts of 2,048 tokens: the fused prefill (K5) and 32 greedy decode
-  steps through ``repro_torch.launch.serve.serve_batch``; the prefill is
+  4 prompts of 2,048 tokens: the fused prefill (K5, all 28 launches on its
+  bf16 tensor-core variant) and 32 greedy decode steps through
+  ``repro_torch.launch.serve.serve_batch``; the prefill is
   held against the plain chunked-attention path on the same weights
   (float32 compute: logits and KV cache within 5e-2; bf16 compute: no
   further from the float32 logits than the plain path); one prefill and
@@ -378,6 +379,10 @@ def phase_lm(seed: int) -> dict:
     assert launches.get("flash_attention", 0) == cfg.n_layers, \
         f"K5 launched {launches.get('flash_attention', 0)} times in one " \
         f"prefill, expected {cfg.n_layers}"
+    assert launches.get("flash_attention_wgmma", 0) == cfg.n_layers, \
+        f"the bf16 prefill launched K5's tensor-core variant " \
+        f"{launches.get('flash_attention_wgmma', 0)} times, expected " \
+        f"{cfg.n_layers}: {launches}"
     assert tokens.shape == (LM_BATCH, LM_DECODE + 1), tokens.shape
     assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
     assert (tokens == repeat["tokens"]).all(), "a repeat run gave other tokens"
@@ -757,13 +762,15 @@ def _k5_inputs(gen, b, h, kh, sq, skv, d, dtype):
 def kernel_k5(seed, launches) -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     b, h, kh, sq, d = LM_BATCH, 12, 2, LM_PROMPT, 128
     main = _k5_inputs(gen, b, h, kh, sq, sq, d, torch.bfloat16)
     # (inputs, causal, rtol, atol): bf16 output rounding is 2^-9 relative,
-    # held at 2^-8 plus 1e-4; float32 at 1e-5
+    # held at 2^-8 plus 1e-4; float32 at 1e-5.  bf16 at D 64 / 128 runs
+    # the tensor-core variant, the rest the SIMT one
     bf16_tol, f32_tol = (2.0 ** -8, 1e-4), (1e-5, 1e-5)
     cases = [(main, True) + bf16_tol,
              (_k5_inputs(gen, 1, h, kh, 1000, 777, d, torch.bfloat16),
@@ -771,16 +778,30 @@ def kernel_k5(seed, launches) -> dict:
              (_k5_inputs(gen, 2, h, kh, 1000, 1000, d, torch.float32),
               True) + f32_tol,
              (_k5_inputs(gen, 1, 4, 4, 200, 300, 24, torch.float32),
-              False) + f32_tol]
+              False) + f32_tol,
+             (_k5_inputs(gen, 2, 8, 2, 333, 333, 64, torch.bfloat16),
+              True) + bf16_tol,
+             (_k5_inputs(gen, 1, h, kh, 300, 200, d, torch.bfloat16),
+              True) + bf16_tol]
     errs = []
     for (q, k, v), causal, rtol, atol in cases:
+        kind = kernel.variant(q.dtype, q.shape[-1])
+        before = launch_counts()
         got = kernel.flash_attention_kernel(q, k, v, causal).float()
+        after = launch_counts()
         want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
         err = (got - want).abs()
         errs.append(float(err.max()))
         assert bool((err <= atol + rtol * want.abs()).all()), \
-            f"K5 vs plain {tuple(q.shape)} causal={causal}: max abs " \
-            f"{errs[-1]:.3e}"
+            f"K5 ({kind}) vs plain {tuple(q.shape)} causal={causal}: max " \
+            f"abs {errs[-1]:.3e}"
+        moved = {n: after[n] - before.get(n, 0) for n in after
+                 if n.startswith("flash_attention")}
+        assert moved == {"flash_attention": 1,
+                         f"flash_attention_{kind}": 1,
+                         **{f"flash_attention_{o}": 0 for o in
+                            kernel.VARIANT_LAUNCHES if o != kind}}, \
+            f"K5 {tuple(q.shape)} {q.dtype}: counters moved {moved}"
     # the gradient: forward on K5, backward through attention_ref
     xs = _k5_inputs(gen, 2, 4, 2, 100, 100, 32, torch.float32)
     w = torch.randn(xs[0].shape, generator=gen, device=DEVICE)
@@ -793,12 +814,17 @@ def kernel_k5(seed, launches) -> dict:
 
     q, k, v = main
     ms = timed_ms(lambda: kernel.flash_attention_kernel(q, k, v, True),
-                  reps=10)
+                  reps=20)
     plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=True),
                         reps=5)
     qc, kc, vc = (x.contiguous() for x in main)
     library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=True, enable_gqa=True), reps=10)
+        qc, kc, vc, is_causal=True, enable_gqa=True), reps=20)
+    # the SIMT variant at the same shape in float32 (the float32-compute
+    # path's kernel)
+    qf, kf, vf = (x.float() for x in main)
+    simt_ms = timed_ms(lambda: kernel.flash_attention_kernel(qf, kf, vf,
+                                                             True), reps=5)
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     n_ops = 4 * b * h * d * _causal_pairs(sq, sq)
     return _row("K5 flash_attention", "cuda",
@@ -809,8 +835,18 @@ def kernel_k5(seed, launches) -> dict:
                 n_bytes, n_ops, "bf16_tensor", library_ms,
                 {"shape": f"[{b},{h},{sq},{d}] kv_heads={kh} bf16 causal, "
                           f"[B,S,H,D] strides",
+                 "variant": kernel.variant(q.dtype, d),
+                 "launches_by_variant": {
+                     kind: launches.get(f"flash_attention_{kind}", 0)
+                     for kind in kernel.VARIANT_LAUNCHES},
                  "max_abs_err_cases": errs, "grad_max_abs_err": grad_err,
                  "tflops": n_ops / (ms * 1e-3) / 1e12,
+                 # the tensor-core work the kernel does: P V twice (P
+                 # split into bf16 hi + lo), so 1.5x the bound's count
+                 "tensor_tflops_done": 1.5 * n_ops / (ms * 1e-3) / 1e12,
+                 **kernel.wgmma_info(d),
+                 "simt_float32_ms": simt_ms,
+                 "simt_float32_shape": f"[{b},{h},{sq},{d}] float32 causal",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True, enable_gqa=True)"})
 
@@ -862,7 +898,8 @@ def main(argv=None) -> int:
     report["nvcc_build_s"] = time.perf_counter() - t0
     for name in build.SOURCES:
         for line in build.build_log(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line or
+                    "entry function" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()

@@ -169,29 +169,48 @@ def test_bloom_probe_kernel_matches_plain(cuda, s, k, q):
     assert launch_counts()["bloom_probe"] == before + 1
 
 
+def _assert_one_launch(before, kind):
+    """K5 launched once since ``before``, on variant ``kind``."""
+    after = launch_counts()
+    moved = {n: after[n] - before.get(n, 0) for n in after
+             if n.startswith("flash_attention")}
+    want = {"flash_attention": 1}
+    want.update({f"flash_attention_{o}": int(o == kind)
+                 for o in fa_kernel.VARIANT_LAUNCHES})
+    assert moved == want, moved
+
+
 @pytest.mark.parametrize("b,h,kh,sq,skv,d", [
     (1, 1, 1, 128, 128, 32), (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 512, 16),
     (2, 4, 4, 200, 300, 24), (1, 2, 2, 384, 128, 128), (1, 12, 2, 1000, 777,
                                                          128),
-    (1, 2, 1, 70, 70, 256), (1, 2, 1, 300, 200, 16)])
+    (1, 2, 1, 70, 70, 256), (1, 2, 1, 300, 200, 16),
+    # the tensor-core variant's edges (bf16 at D 64 / 128): Sq and Skv
+    # not multiples of its 128-row / 64-key tiles, GQA group 6, Sq > Skv
+    # causal, one key, one query row
+    (2, 6, 1, 333, 129, 64), (2, 6, 1, 333, 129, 128), (1, 6, 1, 65, 1, 64),
+    (1, 6, 1, 65, 1, 128), (1, 2, 1, 1, 300, 64), (1, 2, 1, 1, 300, 128),
+    (3, 6, 1, 257, 257, 64), (1, 12, 2, 1000, 777, 64),
+    (1, 12, 2, 300, 200, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
                                               causal, dtype):
     """Against attention_ref in float32 on the same inputs: float32 to
     1e-5; bf16 to the rounding of a float32 result to bf16 (2^-8
-    relative) plus 1e-4."""
+    relative) plus 1e-4.  bf16 at D 64 / 128 runs the tensor-core
+    variant, the rest the SIMT one; the counters say which ran."""
     gen = torch.Generator(device=cuda).manual_seed(sq * skv + d)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
                for shape in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d)))
-    before = launch_counts().get("flash_attention", 0)
+    before = launch_counts()
     got = fa_kernel.flash_attention_kernel(q, k, v, causal)
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
     assert got.dtype == dtype
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
            dict(rtol=2.0 ** -8, atol=1e-4))
     torch.testing.assert_close(got.float(), want, **tol)
-    assert launch_counts()["flash_attention"] == before + 1
+    _assert_one_launch(before, fa_kernel.variant(dtype, d))
     # the model layout through strides, no copy
     bshd = fa_ops.flash_attention_bshd(q.transpose(1, 2).contiguous(),
                                        k.transpose(1, 2).contiguous(),
@@ -212,3 +231,21 @@ def test_flash_attention_grad_on_the_card(cuda):
     (attention_ref(*b_, causal=True) * w).sum().backward()
     for x, y in zip(a, b_):
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_wgmma_rejects_unaligned(cuda):
+    """TMA reads only 16-byte aligned rows and bases: an input without
+    them raises ValueError, launches nothing, and never falls back."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    wide = torch.randn((1, 2, 100, 68), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    k = torch.randn((1, 1, 100, 64), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    flat = torch.randn(1 + 2 * 100 * 64, generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    # rows 136 bytes apart; a base 2 bytes off
+    for q in (wide[..., :64], flat[1:].view(1, 2, 100, 64)):
+        before = launch_counts()
+        with pytest.raises(ValueError, match="TMA"):
+            fa_kernel.flash_attention_kernel(q, k, k, True)
+        assert launch_counts() == before
