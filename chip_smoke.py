@@ -12,7 +12,10 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   what-if-hardware swap to ``hw1`` (no new K0 specialisation), the
   fused totals held against the scalar oracle on a fixed cell sample
   (1e-6 relative) and the argmins against the grouped engine; then the
-  same on a profile with a knn model, so K0 runs its top-4 path.
+  same on a profile with a knn model, so K0 runs its top-4 path.  Each
+  sweep is one K0 launch; one more repeat question is traced with
+  ``torch.profiler`` (K0's device time, host-to-device copies, the
+  card's busy share).
 * ``kvstore``: the three stores of ``examples/kv_store.py``: sorted array
   (K1) and hash table (K3) at 2^24 keys and 2^20 queries, and the log with
   a bloom filter (K4 skips misses, K2 scans the log for the rest) at 2^20
@@ -34,6 +37,7 @@ Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
+``--only whatif`` runs the whatif phase alone and prints no result line.
 """
 from __future__ import annotations
 
@@ -85,6 +89,9 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 #: the reference's flash-vs-xla tolerance (tests/test_arch_smoke.py)
 LM_TOL = 5e-2
 DEVICE = "cuda"
+#: device clock cycles (~25 ms) timed_ms holds the stream before a timed
+#: batch, longer than the host takes to queue 20 launches of any kernel
+SLEEP_CYCLES = 50_000_000
 
 
 def log(msg: str) -> None:
@@ -93,13 +100,16 @@ def log(msg: str) -> None:
 
 def timed_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of one ``fn()`` over ``reps`` launches (CUDA
-    events around the batch, after warm-up)."""
+    events around the batch, after warm-up).  The batch is queued behind
+    a device-side sleep, so a kernel shorter than its own launch on the
+    host is timed back to back, not at the host's launch pace."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -150,7 +160,7 @@ def check_sweep(ans, frontier, workloads, mixes, hw, rng) -> dict:
             "max_rel_vs_grouped": rel, "argmins_match_grouped": same}
 
 
-def phase_whatif(seed: int) -> dict:
+def phase_whatif(seed: int, one_launch: bool = True) -> dict:
     from repro_torch.core import (autocomplete, batchcost, devicecost,
                                   hardware, whatif)
     from repro_torch.core.synthesis import Workload
@@ -162,26 +172,39 @@ def phase_whatif(seed: int) -> dict:
     hw3, hw1 = hardware.hw3(), hardware.hw1()
     knn_hw = knn_profile(hw3)
 
+    sweep_launches = []
+
+    def sweep(hw):
+        """One design-continuum question: its answer, its host-clock
+        seconds, and the K0 launches it made (kept in sweep_launches)."""
+        before = launch_counts().get("bank_score", 0)
+        t0 = time.perf_counter()
+        answer = whatif.workload_sweep(frontier, workloads, hw, mixes)
+        took = time.perf_counter() - t0
+        sweep_launches.append(launch_counts().get("bank_score", 0) - before)
+        return answer, took
+
     reset_launch_counts()
-    t0 = time.perf_counter()
-    ans = whatif.workload_sweep(frontier, workloads, hw3, mixes)
-    first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ans = whatif.workload_sweep(frontier, workloads, hw3, mixes)
-    repeat_s = time.perf_counter() - t0
+    ans, first_s = sweep(hw3)
+    ans, repeat_s = sweep(hw3)
     specs_before = devicecost.specialisation_count()
-    t0 = time.perf_counter()
-    ans_hw1 = whatif.workload_sweep(frontier, workloads, hw1, mixes)
-    swap_s = time.perf_counter() - t0
+    ans_hw1, swap_s = sweep(hw1)
     best = ans.best(0)[0]
     swap = whatif.what_if_hardware(best, workloads[0], hw3, hw1, mixes[0])
     new_specs = devicecost.specialisation_count() - specs_before
-    ans_knn = whatif.workload_sweep(frontier, workloads, knn_hw, mixes)
+    ans_knn, _ = sweep(knn_hw)
     launches = launch_counts()
+    # where a repeat question's time goes: one more, traced (after the
+    # counters are read, so they hold the path's own launches)
+    profile_repeat = _profile(
+        lambda: whatif.workload_sweep(frontier, workloads, hw3, mixes), 1,
+        watch="bank_score")
 
     assert new_specs == 0, f"hardware swap added {new_specs} K0 " \
                            f"specialisations"
     assert launches.get("bank_score", 0) > 0, "K0 never launched"
+    assert sweep_launches == [1] * 4 or not one_launch, \
+        f"K0 launches per sweep: {sweep_launches}, not one each"
     n_records = len(batchcost.pack_sweep(frontier, workloads,
                                          mixes).frontiers[0].ids)
     out = {"designs": len(frontier), "points": N_POINTS,
@@ -189,7 +212,11 @@ def phase_whatif(seed: int) -> dict:
            "first_sweep_s": first_s, "repeat_sweep_s": repeat_s,
            "hw1_sweep_s": swap_s, "hw_swap_new_specialisations": new_specs,
            "what_if_hardware": swap.summary(),
-           "launches": launches}
+           "launches": launches, "k0_launches_per_sweep": sweep_launches,
+           "profile_repeat": profile_repeat,
+           # traced device time over the untraced repeat's host clock
+           "repeat_device_busy_share":
+               profile_repeat["device_ms_per_step"] / (repeat_s * 1e3)}
     out["hw3"] = check_sweep(ans, frontier, workloads, mixes, hw3, rng)
     out["hw1"] = check_sweep(ans_hw1, frontier, workloads, mixes, hw1, rng)
     out["knn"] = check_sweep(ans_knn, frontier, workloads, mixes, knn_hw,
@@ -312,17 +339,21 @@ def _within(a, b, tol: float) -> bool:
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
 
 
-def _profile(fn, steps: int) -> dict:
+def _profile(fn, steps: int, watch: str = "") -> dict:
     """torch.profiler over ``steps`` calls of ``fn``: device and host time
-    per call, and the kernels that take the most device time."""
+    per call, the kernels that take the most device time, the host-to-
+    device copies, and the device time of each launch of the kernels
+    whose name holds ``watch``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # device work is counted on the kernels' own (CUDA) events only: the
     # operator events that launched them report the same time again
@@ -338,13 +369,26 @@ def _profile(fn, steps: int) -> dict:
                   if e.device_type == torch.autograd.DeviceType.CPU)
     top = sorted(kernels, key=dev, reverse=True)[:8]
     # (the host time is inflated by the profiler's own work)
-    return {"steps": steps, "device_ms_per_step": device_us / 1e3 / steps,
-            "host_ms_per_step": host_us / 1e3 / steps,
-            "top_kernels_ms_per_step": {
-                e.key[:60]: dev(e) / 1e3 / steps for e in top},
-            "launches_per_step": sum(
-                e.count for e in events if e.key == "cudaLaunchKernel") /
-            steps}
+    out = {"steps": steps, "device_ms_per_step": device_us / 1e3 / steps,
+           "host_ms_per_step": host_us / 1e3 / steps,
+           "wall_ms_per_step": wall_ms / steps,
+           "device_busy_share_traced": device_us / 1e3 / wall_ms,
+           "htod_copy_ms_per_step": sum(
+               dev(e) for e in kernels if "HtoD" in e.key) / 1e3 / steps,
+           "device_events_per_step": sum(e.count for e in kernels) / steps,
+           "top_kernels_ms_per_step": {
+               e.key[:60]: dev(e) / 1e3 / steps for e in top},
+           "launches_per_step": sum(
+               e.count for e in events if e.key == "cudaLaunchKernel") /
+           steps}
+    if watch:
+        each = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and watch in e.name]
+        out[f"{watch}_launches_per_step"] = len(each) / steps
+        out[f"{watch}_ms_per_step"] = sum(each) / steps
+        out[f"{watch}_ms_each"] = each
+    return out
 
 
 def phase_lm(seed: int) -> dict:
@@ -474,42 +518,19 @@ def phase_lm(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # kernels: each kernel against its plain version, with times and bounds
 # ---------------------------------------------------------------------------
-def _k0_chunks(frontier, workloads, mixes):
-    """The first and the last K0 chunk of the main sweep, laid out exactly
-    as ``devicecost.score_sweep`` lays them out."""
-    from repro_torch.core import batchcost, devicecost
-    from repro_torch.core.templatecost import segment_ranges
-    sweep = batchcost.pack_sweep(frontier, workloads, mixes)
-    f0 = sweep.frontiers[0]
-    ids = np.asarray(f0.ids, np.int32)
-    sizes = np.stack([f.sizes for f in sweep.frontiers])
-    weights = np.stack([f.weights for f in sweep.frontiers])
-    tiles = np.asarray(f0.tile_segments)
-    chunk = devicecost.sweep_chunk(len(workloads))
-    out = []
-    for lo in (0, (len(ids) - 1) // chunk * chunk):
-        sl = slice(lo, lo + chunk)
-        t_sl = slice(lo // devicecost.TILE, (lo + chunk) // devicecost.TILE)
-        p = devicecost.pad_sweep(ids[sl], sizes[:, sl], weights[:, sl],
-                                 tiles[t_sl],
-                                 devicecost._pow2(len(ids[sl]), 16))
-        seg_lo = int(p[3][0])
-        n_local = int(p[3][-1]) + 1 - seg_lo
-        _, cuts = segment_ranges(p[3] - seg_lo, n_local, n_local)
-        out.append((p[0], p[1], p[2], cuts.astype(np.int32)))
-    return out
-
-
 def _ragged_k0(rng):
-    """Segments of 1, 9, 17 and 3 tiles (not BLOCK_R multiples), W = 3."""
+    """Designs of 1-6 tiles and longer than K0's record block (9 and 17
+    tiles), one empty design; W = 67 (not a multiple of its row block)."""
+    import torch
     from repro_torch.core import devicecost
-    n_tiles = [1, 9, 17, 3]
+    n_tiles = [1, 2, 3, 4, 5, 6, 0, 9, 17, 3]
     r = sum(n_tiles) * devicecost.TILE
     ids = rng.integers(0, 14, r).astype(np.int32)
-    sizes = np.exp(rng.uniform(0, 20, (3, r))).astype(np.float32)
-    weights = rng.uniform(0, 3, (3, r)).astype(np.float32)
+    sizes = np.exp(rng.uniform(0, 20, (67, r))).astype(np.float32)
+    weights = rng.uniform(0, 3, (67, r)).astype(np.float32)
     cuts = np.concatenate([[0], np.cumsum(n_tiles)]).astype(np.int32)
-    return ids, sizes, weights, cuts
+    return [torch.as_tensor(a, device=DEVICE)
+            for a in (ids, sizes, weights, cuts)]
 
 
 def _rel_err(got, want) -> float:
@@ -519,15 +540,19 @@ def _rel_err(got, want) -> float:
 
 def kernel_k0(frontier, workloads, mixes, rng, launches) -> dict:
     import torch
-    from repro_torch.core import devicecost, hardware
+    from repro_torch.core import batchcost, devicecost, hardware
+    dev = torch.device(DEVICE)
     tables = [devicecost.device_table(h, DEVICE)
               for h in (hardware.hw3(), knn_profile(hardware.hw3()))]
-    cases = _k0_chunks(frontier, workloads, mixes) + [_ragged_k0(rng)]
+    # the path's own layouts: the whole sweep (W = 64) and its first
+    # point as a flat frontier (W = 1), real records only
+    sweep = batchcost.pack_sweep(frontier, workloads, mixes)
+    main = sweep._sweep_arrays(dev).arrays
+    cases = [main, sweep.frontiers[0]._device_sweep(dev).arrays,
+             _ragged_k0(rng)]
     worst_rel, worst_abs = 0.0, 0.0
     for table in tables:
-        for ids, sizes, weights, cuts in cases:
-            args = [torch.as_tensor(a, device=DEVICE)
-                    for a in (ids, sizes, weights, cuts)]
+        for args in cases:
             got = devicecost.bank_score(table.banks, *args, table.has_knn)
             want = devicecost.bank_score_plain(table.banks, *args,
                                                table.has_knn)
@@ -536,14 +561,16 @@ def kernel_k0(frontier, workloads, mixes, rng, launches) -> dict:
             worst_abs = max(worst_abs,
                             float((got.double() - want.double()).abs().max()))
     assert worst_rel <= 1e-6, f"K0 vs plain: {worst_rel:.3e} > 1e-6"
-    # time the main path's launch shape: the first [W, chunk] chunk, hw3
+    # time the main path's launch: the whole [W, R] sweep, hw3
     table = tables[0]
-    ids, sizes, weights, cuts = [torch.as_tensor(a, device=DEVICE)
-                                 for a in cases[0]]
+    ids, sizes, weights, cuts = main
     ms = timed_ms(lambda: devicecost.bank_score(table.banks, ids, sizes,
                                                 weights, cuts, False))
     plain_ms = timed_ms(lambda: devicecost.bank_score_plain(
-        table.banks, ids, sizes, weights, cuts, False))
+        table.banks, ids, sizes, weights, cuts, False), reps=5)
+    knn_table = tables[1]
+    knn_ms = timed_ms(lambda: devicecost.bank_score(
+        knn_table.banks, ids, sizes, weights, cuts, True))
     w_axis, r = sizes.shape
     n_seg = cuts.shape[0] - 1
     n_bytes = 4 * r + 8 * w_axis * r + 4 * (n_seg + 1) + 4 * w_axis * n_seg
@@ -554,8 +581,9 @@ def kernel_k0(frontier, workloads, mixes, rng, launches) -> dict:
                 "_score_kernel :369, _sweep_kernel :384)",
                 launches.get("bank_score", 0), worst_abs, ms, plain_ms,
                 n_bytes, n_ops, "fp32", None,
-                {"max_rel_err": worst_rel,
-                 "shape": f"W={w_axis} R={r} segments={n_seg}"})
+                {"max_rel_err": worst_rel, "knn_ms": knn_ms,
+                 "shape": f"W={w_axis} R={r} segments={n_seg} (the whole "
+                          f"sweep, real records only)"})
 
 
 def _touched_keys(keys_sorted: np.ndarray, queries: np.ndarray) -> int:
@@ -632,7 +660,8 @@ def kernel_k3(data, rng, launches) -> dict:
             torch.as_tensor(queries, device=DEVICE), HASH_S)
     cases = [main]
     for s, cap, n, nq in ((7, 40, 3000, 1001), (1, 3, 5, 33),
-                          (10, 8, 9000, 4097)):
+                          (10, 8, 9000, 4097), (5, 33, 700, 333),
+                          (1, 32, 40, 45), (4, 16, 900, 101)):
         k = rng.choice(1 << 20, n, replace=False)
         t_k, t_v = ref.build_table(k, k * 3 + 1, s, DEFAULT_A, cap)
         qq = np.concatenate([k[: nq // 2], rng.integers(1 << 21, 1 << 22,
@@ -642,6 +671,10 @@ def kernel_k3(data, rng, launches) -> dict:
                       torch.as_tensor(t_v, device=DEVICE),
                       torch.as_tensor(qq.astype(np.int32), device=DEVICE),
                       s))
+    # the main table 4 bytes off 16-byte alignment: the scalar loads
+    buf = torch.zeros(tk.size + 1, dtype=torch.int32, device=DEVICE)
+    buf[1:] = main[0].reshape(-1)
+    cases.append((buf[1:].view(tk.shape),) + main[1:])
     mismatches = 0
     for t_k, t_v, qq, s in cases:
         p1, v1 = kernel.hash_probe_kernel(t_k, t_v, qq, DEFAULT_A, s)
@@ -651,6 +684,8 @@ def kernel_k3(data, rng, launches) -> dict:
     t_k, t_v, qq, s = main
     ms = timed_ms(lambda: kernel.hash_probe_kernel(t_k, t_v, qq, DEFAULT_A,
                                                    s))
+    scalar_ms = timed_ms(lambda: kernel.hash_probe_kernel(
+        cases[-1][0], t_v, qq, DEFAULT_A, s))
     plain_ms = timed_ms(lambda: ref.hash_probe_ref(t_k, t_v, qq, DEFAULT_A,
                                                    s))
     buckets = ref.multiply_shift_np(queries, DEFAULT_A, HASH_S)
@@ -664,7 +699,8 @@ def kernel_k3(data, rng, launches) -> dict:
                 "(hash_probe_kernel, _probe_kernel :40)",
                 launches.get("hash_probe", 0), 0.0, ms, plain_ms, n_bytes,
                 n_q * 2 * HASH_CAP, "int32", None,
-                {"shape": f"table=[2^{HASH_S},{HASH_CAP}] Q={n_q}"})
+                {"shape": f"table=[2^{HASH_S},{HASH_CAP}] Q={n_q}",
+                 "unaligned_table_scalar_loads_ms": scalar_ms})
 
 
 def kernel_k2(data, rng, launches) -> dict:
@@ -870,11 +906,33 @@ def _row(name, route, source, replaces, launches, max_abs_err, ms,
 
 
 # ---------------------------------------------------------------------------
+def _nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def _write_report(path, report) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(report, fh, indent=1, default=str)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
+    parser.add_argument("--only", choices=["whatif"], default=None,
+                        help="run this phase alone, without its one-K0-"
+                             "launch-per-sweep check, and print its report "
+                             "but no kernels line and no result line (to "
+                             "trace an older checkout's src/ with this "
+                             "script)")
     args = parser.parse_args(argv)
 
     import torch
@@ -903,10 +961,14 @@ def main(argv=None) -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    report["whatif"] = phase_whatif(args.seed)
+    report["whatif"] = phase_whatif(args.seed, one_launch=not args.only)
     report["whatif"]["phase_s"] = time.perf_counter() - t0
     log("whatif: " + json.dumps({k: v for k, v in report["whatif"].items()
                                  if k != "best_designs"}))
+    if args.only:
+        _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
 
     t0 = time.perf_counter()
     data = kv_data(args.seed)
@@ -941,17 +1003,10 @@ def main(argv=None) -> int:
     report["kernels_phase_s"] = time.perf_counter() - t0
     report["total_s"] = time.perf_counter() - t_start
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout
-    smi = smi.strip().splitlines()[0]
+    smi = _nvidia_smi()
     report["nvidia_smi"] = smi
     report["kernels"] = kernels
-    if args.report:
-        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
-                    exist_ok=True)
-        with open(args.report, "w") as fh:
-            json.dump(report, fh, indent=1, default=str)
+    _write_report(args.report, report)
     log(f"total {report['total_s']:.1f}s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

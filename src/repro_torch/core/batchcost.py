@@ -5,10 +5,13 @@ synthesized :class:`CostBreakdown` compiles into parallel numpy arrays
 (Level-2 model id, size argument, weighted count) and whole frontiers are
 scored through one of two engines:
 
-* ``engine="fused"`` (default): the packed frontier arrays go to
-  :func:`repro_torch.core.devicecost.score_frontier` — kernel K0 evaluates
-  every record against device-resident parameter banks and reduces each
-  design's records in the program that owns it.
+* ``engine="fused"`` (default): the packed frontier is laid out on the
+  device once (:func:`repro_torch.core.devicecost.to_device_sweep`, the
+  ``W = 1`` case) and scored by
+  :func:`repro_torch.core.devicecost.score_sweep` — one launch of
+  kernel K0, which evaluates every record against device-resident
+  parameter banks and reduces each design's records in the program that
+  owns it.
 * ``engine="grouped"``: the oracle — group records of all candidates by
   model and evaluate each Level-2 model's vectorized
   :meth:`FittedModel.predict` once per call.  It matches the scalar path
@@ -32,8 +35,9 @@ Public API
     The workload-sweep engine: a (designs x workloads) grid packed by
     splicing the shared workload-free template statics with per-workload
     geometry columns (:func:`repro_torch.core.templatecost.pack_points`)
-    and scored through :func:`repro_torch.core.devicecost.score_sweep`
-    (bank gathers issued once for all workloads).  ``cost_sweep`` returns
+    and scored by one K0 launch over the whole grid, resident on the
+    device after its first score (bank gathers issued once per design
+    for a block of workloads).  ``cost_sweep`` returns
     the ``[W, D]`` totals grid.  ``concat_sweeps(parts)`` splices sweeps
     over the same points along the design axis.
 ``compiled_operation(op, spec, workload)``
@@ -205,7 +209,7 @@ def _remap_ids(ids, remap, shared: Dict[int, np.ndarray]) -> np.ndarray:
 
 
 def _strip_frontier(f: "PackedFrontier") -> "PackedFrontier":
-    """A clean copy without the cached ``_f32`` views (capture transform)."""
+    """A clean copy without the cached ``_f32`` layouts (capture transform)."""
     return PackedFrontier(f.ids, f.sizes, f.weights, f.tile_segments,
                           f.n_segments)
 
@@ -295,6 +299,20 @@ def cache_info() -> Dict[str, Tuple]:
 # ---------------------------------------------------------------------------
 # Frontier packing (hardware-independent)
 # ---------------------------------------------------------------------------
+def _per_device(packed, device, build) -> "devicecost.DeviceSweep":
+    """``build()``'s layout of a frozen packed frontier or sweep, memoized
+    per device on its ``__dict__`` (``_f32``; snapshot capture strips it).
+    Two racing threads may build equal layouts; the last write wins."""
+    per_device = packed.__dict__.get("_f32")
+    if per_device is None:
+        per_device = {}
+        object.__setattr__(packed, "_f32", per_device)
+    laid_out = per_device.get(device)
+    if laid_out is None:
+        laid_out = per_device[device] = build()
+    return laid_out
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedFrontier:
     """A whole frontier flattened to parallel record arrays.
@@ -317,34 +335,23 @@ class PackedFrontier:
         """Per-record design indices (expanded from the tile layout)."""
         return np.repeat(self.tile_segments, devicecost.TILE)
 
-    def _fused_arrays(self) -> Tuple[np.ndarray, ...]:
-        """Device-dtype views for the fused scorer, converted once.
-
-        Repeat questions score the same retained frontier over and over;
-        caching the float32/int32 conversions here (the instance is
-        frozen — the memo rides its ``__dict__``) saves three array
-        copies per score.
-        """
-        cached = self.__dict__.get("_f32")
-        if cached is None:
-            cached = (np.asarray(self.ids, np.int32),
-                      np.asarray(self.sizes, np.float32),
-                      np.asarray(self.weights, np.float32),
-                      np.asarray(self.tile_segments, np.int32))
-            object.__setattr__(self, "_f32", cached)
-        return cached
+    def _device_sweep(self, device) -> devicecost.DeviceSweep:
+        """The frontier laid out for K0 as a ``W = 1`` sweep, once per
+        device: repeat questions score the same retained frontier over
+        and over with no conversion and no host->device copy."""
+        return _per_device(self, device, lambda: devicecost.to_device_sweep(
+            self.ids, self.sizes[None], self.weights[None],
+            self.tile_segments, self.n_segments, device))
 
     def score(self, hw: HardwareProfile, engine: str = "fused",
               shard: Optional[bool] = None, device=None) -> np.ndarray:
         """Per-design totals under ``hw`` via the selected engine.
         ``shard``/``device`` pass through to
-        :func:`repro_torch.core.devicecost.score_frontier` (fused only;
+        :func:`repro_torch.core.devicecost.score_sweep` (fused only;
         ``shard=True`` raises until multi-GPU scoring is ported)."""
         if engine == "fused":
-            ids, sizes, weights, tiles = self._fused_arrays()
-            return devicecost.score_frontier(
-                ids, sizes, weights, tiles,
-                self.n_segments, hw, shard=shard, device=device)
+            return devicecost.score_sweep(
+                self._device_sweep(runtime.device(device)), hw, shard)[0]
         if engine != "grouped":
             raise ValueError(f"unknown engine: {engine!r}")
         segments = self.segments
@@ -479,10 +486,10 @@ class PackedSweep:
     (same template statics; the common case for read/write-ratio, skew,
     selectivity or query-count sweeps at a fixed data size) — the frozen
     per-point frontiers share one interned ids array, and ``score``
-    issues ONE :func:`repro_torch.core.devicecost.score_sweep` call whose bank
-    gathers are amortized across every workload.  Non-rectangular sweeps
-    (``n_entries`` changing a chain's level structure) degrade gracefully
-    to one spliced flat fused call.
+    issues ONE K0 launch (:func:`repro_torch.core.devicecost.score_sweep`)
+    whose bank gathers are amortized across workloads.  Non-rectangular
+    sweeps (``n_entries`` changing a chain's level structure) degrade
+    gracefully to one spliced flat fused call.
 
     Hardware never enters the packing: scoring the same sweep against
     another profile is a pure parameter-table swap (zero new kernel
@@ -508,34 +515,22 @@ class PackedSweep:
             object.__setattr__(self, "_rect", cached)
         return cached
 
-    def _sweep_arrays(self, device) -> Tuple:
-        """(host ids, host tile segments, device arrays), built once per
-        sweep and device.
+    def _sweep_arrays(self, device) -> devicecost.DeviceSweep:
+        """The grid laid out for K0, built once per sweep and device.
 
-        Repeat questions re-score the same retained sweep; caching the
-        padded float32 stack — resident on the device when it fits one
-        fused chunk (:func:`repro_torch.core.devicecost.to_device_sweep`)
-        — makes each repeat score one K0 launch with no padding, no dtype
-        conversion and no host->device copy of sizes or weights (the host
-        copies serve the availability check and the segment layout).
+        Repeat questions re-score the same retained sweep; keeping its
+        float32 stack resident on the device (when it fits the ceiling,
+        :func:`repro_torch.core.devicecost.to_device_sweep`) with its
+        real-record cuts makes each repeat score one K0 launch with no
+        padding, no dtype conversion and no host->device copy.
         """
-        per_device = self.__dict__.get("_f32")
-        if per_device is None:
-            per_device = {}
-            object.__setattr__(self, "_f32", per_device)
-        cached = per_device.get(device)
-        if cached is None:
+        def build():
             f0 = self.frontiers[0]
-            bucket = devicecost._pow2(len(f0.ids), 16)
-            padded = devicecost.pad_sweep(
-                np.asarray(f0.ids, np.int32),
-                np.stack([f.sizes for f in self.frontiers]),
+            return devicecost.to_device_sweep(
+                f0.ids, np.stack([f.sizes for f in self.frontiers]),
                 np.stack([f.weights for f in self.frontiers]),
-                np.asarray(f0.tile_segments, np.int32), bucket)
-            cached = (padded[0], padded[3],
-                      devicecost.to_device_sweep(*padded, device=device))
-            per_device[device] = cached
-        return cached
+                f0.tile_segments, self.n_designs, device)
+        return _per_device(self, device, build)
 
     def score(self, hw: HardwareProfile, engine: str = "fused",
               shard: Optional[bool] = None, device=None) -> np.ndarray:
@@ -551,14 +546,8 @@ class PackedSweep:
             return np.zeros((self.n_points, self.n_designs))
         if engine == "fused":
             if self.rectangular:
-                dev = runtime.device(device)
-                host_ids, host_tiles, (ids, sizes, weights, tiles) = \
-                    self._sweep_arrays(dev)
-                return devicecost.score_sweep(ids, sizes, weights, tiles,
-                                              self.n_designs, hw,
-                                              host_ids=host_ids,
-                                              host_tiles=host_tiles,
-                                              shard=shard, device=dev)
+                return devicecost.score_sweep(
+                    self._sweep_arrays(runtime.device(device)), hw, shard)
             # non-rectangular: one spliced flat fused call over the
             # whole grid (point-major), not one call per point
             flat = concat_frontiers(list(self.frontiers))

@@ -5,7 +5,7 @@ The port's twin of the reference's ``core/devicecost.py``.  An entire
 device-resident *parameter banks* (:class:`DeviceTable`), and a frontier
 — parallel ``(model_id, size, weight, tile_segment)`` arrays in the
 layout :mod:`repro_torch.core.batchcost` packs — is scored by one kernel
-launch per chunk that
+launch that
 
 1. gathers each record's parameters from per-kind stacked banks and
    evaluates all three families branch-free (the canonical 4-feature
@@ -15,18 +15,20 @@ launch per chunk that
 
 **Kernel K0** (:func:`bank_score`, Triton) replaces the reference's
 jitted XLA scorer ``bank_predict`` + ``_score_kernel`` / ``_sweep_kernel``
-(``repro/core/devicecost.py:328-406``).  One program owns one design
-(segment) whole: it gathers the bank rows of its records once, then
-walks every workload row of a ``[W, R]`` sweep against them, so the
-flat frontier form is the ``W = 1`` case of the same body.  Totals are
-written by their owning program only — no float atomics — so a score is
-bit-for-bit reproducible run to run.  What bounds it on the H100: bytes.
-Each call must read ``(4 + 8 W) R`` bytes of ids, sizes and weights
-(the banks are a few KB and stay in L2), against a few dozen flops per
-(record, workload) cell; the design keeps the bank gathers out of the W
-loop and reads every size and weight exactly once.  The knn top-4 runs
-in registers under the ``WITH_KNN`` constexpr, so profiles without knn
-models never pay for it.
+(``repro/core/devicecost.py:328-406``).  Its grid is (design, block of
+``_BLOCK_W`` workload rows): a program gathers the bank rows of its
+design's records once, evaluates a ``[_BLOCK_W, _BLOCK_R]`` tile of
+(workload, record) cells, loops over record blocks only for a design
+longer than ``_BLOCK_R``, reduces along records and stores each of its
+``(w, design)`` totals once — no read-add-write, no float atomics — so a
+score is bit-for-bit reproducible run to run.  The flat frontier form is
+the ``W = 1`` case of the same body.  What bounds it on the H100: bytes,
+``(4 + 8 W) R`` of ids, sizes and weights (the banks are a few KB and
+stay in L1/L2), against a few dozen flops per cell; in practice the
+precise ``logf``/``expf`` of libdevice cost several times that count.
+The knn top-4 runs in registers, an insertion network over the support
+points under the ``WITH_KNN`` constexpr, so profiles without knn models
+never pay for it.
 
 :func:`bank_predict` is the plain PyTorch version of the per-record
 evaluation (differentiable in ``x``, for the search slice) and
@@ -34,16 +36,23 @@ evaluation (differentiable in ``x``, for the search slice) and
 takes the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
 
-Shapes are bucketed exactly like the reference — records pad to powers
-of two and chunk at ``_MAX_FUSED_RECORDS`` (sweeps at
-:func:`sweep_chunk`), and chunk totals accumulate in float64 in the
-reference's order.  Bank widths are fixed per process, which makes a
-what-if-hardware question a pure parameter-table swap: a new profile
-builds new banks of identical shape and reuses the compiled kernel —
-:func:`specialisation_count` counts the kernel specialisations asked for
-and must not move across a swap.  The reference's multi-device paths
-(pmap shards, the shard-threshold calibration, per-device bank replicas)
-are not ported yet: ``shard=True`` raises.
+Layout: K0 reads the real records only.  Each design owns the tiles
+between its two per-segment cuts (:func:`segment_cuts`, over the
+unpadded tile segments), so the reference's power-of-two pad rows —
+weight 0, owned by the last design — are never stored or read, and
+dropping them changes no total.  :func:`to_device_sweep` lays a sweep
+(or, with ``W = 1``, a frontier) out once: when it holds at most
+``_MAX_FUSED_RECORDS`` (workload, record) cells it stays resident on the
+device, and every later score is one launch with no host->device copy;
+a larger grid stays on the host and streams through in chunks of
+:func:`sweep_chunk` records, accumulated in float64.  Bank widths are
+fixed per process, which makes a what-if-hardware question a pure
+parameter-table swap: a new profile builds new banks of identical shape
+and reuses the compiled kernel — :func:`specialisation_count` counts the
+kernel specialisations asked for and must not move across a swap.  The
+reference's multi-device paths (pmap shards, the shard-threshold
+calibration, per-device bank replicas) are not ported yet:
+``shard=True`` raises.
 
 Totals agree with the scalar oracle to <=1e-6 relative (banked float32
 evaluation; the segment reduction runs in float32).
@@ -116,15 +125,24 @@ _CANONICAL_SLOTS = {
 _SIG_SLOTS = 4
 _KNN_SLOTS = 16
 
-#: largest fused record-chunk; bigger frontiers accumulate over chunks
-_MAX_FUSED_RECORDS = 1 << 18
+#: the device-memory ceiling of one K0 launch, in (workload row, record)
+#: cells: a grid this large or smaller is kept resident on the device
+#: (8 bytes a cell of float32 sizes and weights, so at most 512 MiB — and
+#: 4 GiB for the 8 sweeps the sweep cache holds) and scored in one
+#: launch; a larger one streams through in chunks of sweep_chunk records
+_MAX_FUSED_RECORDS = 1 << 26
 
 #: records per reduction tile: packing pads every design's record block
 #: to a multiple of TILE (pad rows carry weight 0)
 TILE = 8
 
-#: records one K0 program evaluates per step of its loop over its design
-_BLOCK_R = 64
+#: K0's tile: _BLOCK_W workload rows x _BLOCK_R records per program step.
+#: The main frontier's designs hold 8-40 records (3-4 tiles for 91% of
+#: them), so 32 records cover nearly every design in one step; 16 rows
+#: keep 4 cells a thread at 4 warps, and W = 64 makes 4 programs a design
+_BLOCK_W = 16
+_BLOCK_R = 32
+_NUM_WARPS = 4
 
 _BANK_KEYS = ("kinds", "lin_w", "lin_y0", "sig_c", "sig_k", "sig_x0",
               "sig_y0", "knn_lx", "knn_y", "xlo", "xhi")
@@ -321,7 +339,8 @@ def bank_score_plain(banks: Dict[str, torch.Tensor], ids: torch.Tensor,
     """Plain PyTorch version of :func:`bank_score`: ``[W, n_seg]`` float32
     totals of the records in ``ids``/``sizes``/``weights`` (``[R]``,
     ``[W, R]``, ``[W, R]``; R a TILE multiple), where design ``s`` owns
-    tiles ``seg_tiles[s]:seg_tiles[s + 1]``."""
+    tiles ``seg_tiles[s]:seg_tiles[s + 1]`` (``seg_tiles[0] == 0``); tiles
+    past the last cut, such as pad rows, enter no total."""
     y = bank_predict(banks, ids, sizes, with_knn)
     w_axis = sizes.shape[0]
     tiles = (weights * y).reshape(w_axis, -1, TILE).sum(-1)
@@ -387,79 +406,92 @@ def _k0_kernel():
     def bank_score_kernel(kinds_ptr, lin_w_ptr, lin_y0_ptr, sig_c_ptr,
                           sig_k_ptr, sig_x0_ptr, sig_y0_ptr, knn_lx_ptr,
                           knn_y_ptr, xlo_ptr, xhi_ptr,
-                          ids_ptr, sizes_ptr, weights_ptr, seg_tiles_ptr,
+                          ids_ptr, sizes_ptr, weights_ptr, cuts_ptr,
                           out_ptr, n_w, stride_w, n_seg,
                           WITH_KNN: tl.constexpr, SIG: tl.constexpr,
                           KNN: tl.constexpr, TILE_R: tl.constexpr,
-                          BLOCK_R: tl.constexpr):
+                          BLOCK_W: tl.constexpr, BLOCK_R: tl.constexpr):
         seg = tl.program_id(0)
-        r_lo = tl.load(seg_tiles_ptr + seg) * TILE_R
-        r_hi = tl.load(seg_tiles_ptr + seg + 1) * TILE_R
+        w = tl.program_id(1) * BLOCK_W + tl.arange(0, BLOCK_W)
+        w_live = w < n_w
+        r_lo = tl.load(cuts_ptr + seg) * TILE_R
+        r_hi = tl.load(cuts_ptr + seg + 1) * TILE_R
         offs = tl.arange(0, BLOCK_R)
-        s_cols = tl.arange(0, SIG)
-        k_cols = tl.arange(0, KNN)
+        acc = tl.zeros([BLOCK_W, BLOCK_R], dtype=tl.float32)
         for r0 in range(r_lo, r_hi, BLOCK_R):
             r = r0 + offs
             live = r < r_hi
+            # this design's bank rows, gathered once for all BLOCK_W rows
             mid = tl.load(ids_ptr + r, mask=live, other=0)
-            kind = tl.load(kinds_ptr + mid, mask=live, other=0)
-            lo = tl.load(xlo_ptr + mid, mask=live, other=1.0)
-            hi = tl.load(xhi_ptr + mid, mask=live, other=1.0)
+            kind = tl.load(kinds_ptr + mid, mask=live, other=0)[None, :]
+            lo = tl.load(xlo_ptr + mid, mask=live, other=1.0)[None, :]
+            hi = tl.load(xhi_ptr + mid, mask=live, other=1.0)[None, :]
             w0 = tl.load(lin_w_ptr + mid * 4, mask=live, other=0.0)
             w1 = tl.load(lin_w_ptr + mid * 4 + 1, mask=live, other=0.0)
             w2 = tl.load(lin_w_ptr + mid * 4 + 2, mask=live, other=0.0)
             w3 = tl.load(lin_w_ptr + mid * 4 + 3, mask=live, other=0.0)
             ly0 = tl.load(lin_y0_ptr + mid, mask=live, other=0.0)
-            s_off = mid[:, None] * SIG + s_cols[None, :]
-            sc = tl.load(sig_c_ptr + s_off, mask=live[:, None], other=0.0)
-            sk = tl.load(sig_k_ptr + s_off, mask=live[:, None], other=1.0)
-            sx0 = tl.load(sig_x0_ptr + s_off, mask=live[:, None],
-                          other=0.0)
-            sy0 = tl.load(sig_y0_ptr + mid, mask=live, other=0.0)
+            cell = w_live[:, None] & live[None, :]
+            at = w[:, None] * stride_w + r[None, :]
+            x = tl.load(sizes_ptr + at, mask=cell, other=1.0)
+            wt = tl.load(weights_ptr + at, mask=cell, other=0.0)
+            x = tl.where(x < lo, lo, x)
+            x = tl.where(x > hi, hi, x)
+            lx = _ld.log(x + 1.0)
+            lin = (x * w0[None, :] + lx * w1[None, :]
+                   + _ld.log(lx + 1.0) * w2[None, :]
+                   + (x * lx) * w3[None, :] + ly0[None, :])
+            sig = tl.zeros([BLOCK_W, BLOCK_R], dtype=tl.float32) + tl.load(
+                sig_y0_ptr + mid, mask=live, other=0.0)[None, :]
+            for j in tl.static_range(SIG):
+                sc = tl.load(sig_c_ptr + mid * SIG + j, mask=live, other=0.0)
+                sk = tl.load(sig_k_ptr + mid * SIG + j, mask=live, other=1.0)
+                sx0 = tl.load(sig_x0_ptr + mid * SIG + j, mask=live,
+                              other=0.0)
+                z = sk[None, :] * (lx - sx0[None, :])
+                sig = sig + sc[None, :] / (1.0 + _ld.exp(-z))
+            y = tl.where(kind == 1, sig, lin)
             if WITH_KNN:
-                k_off = mid[:, None] * KNN + k_cols[None, :]
-                klx = tl.load(knn_lx_ptr + k_off, mask=live[:, None],
-                              other=1e9)
-                ky = tl.load(knn_y_ptr + k_off, mask=live[:, None],
-                             other=0.0)
-            # the bank rows above are gathered once; every workload row
-            # of the sweep reuses them
-            for wi in range(0, n_w):
-                x = tl.load(sizes_ptr + wi * stride_w + r, mask=live,
-                            other=1.0)
-                wt = tl.load(weights_ptr + wi * stride_w + r, mask=live,
-                             other=0.0)
-                x = tl.where(x < lo, lo, x)
-                x = tl.where(x > hi, hi, x)
-                lx = _ld.log(x + 1.0)
-                lin = (x * w0 + lx * w1 + _ld.log(lx + 1.0) * w2
-                       + (x * lx) * w3 + ly0)
-                z = sk * (lx[:, None] - sx0)
-                sig = tl.sum(sc / (1.0 + _ld.exp(-z)), axis=1) + sy0
-                y = tl.where(kind == 1, sig, lin)
-                if WITH_KNN:
-                    kw = tl.abs(lx[:, None] - klx) + 1e-6
-                    kw = tl.where(klx >= 5e8, 0.0, 1.0 / kw)
-                    num = tl.zeros([BLOCK_R], dtype=tl.float32)
-                    den = tl.zeros([BLOCK_R], dtype=tl.float32)
-                    for _j in tl.static_range(4):
-                        best = tl.max(kw, axis=1)
-                        first = tl.min(tl.where(kw == best[:, None],
-                                                k_cols[None, :], KNN),
-                                       axis=1)
-                        hit = k_cols[None, :] == first[:, None]
-                        yk = tl.sum(tl.where(hit, ky, 0.0), axis=1)
-                        num += best * yk
-                        den += best
-                        kw = tl.where(hit, -1.0, kw)
-                    knn = num / tl.where(den < 1e-30, 1e-30, den)
-                    y = tl.where(kind == 2, knn, y)
-                y = tl.where(y < 0.0, 0.0, y)
-                part = tl.sum(tl.where(live, wt * y, 0.0), axis=0)
-                # this program alone owns the total: read-add-write in
-                # order, no atomics
-                dst = out_ptr + wi * n_seg + seg
-                tl.store(dst, tl.load(dst) + part)
+                # the 4 largest inverse distances, kept sorted (b1 >= b2
+                # >= b3 >= b4) while the support points stream past in
+                # index order; a strict > keeps the lower index first on
+                # a tie, as the plain version's top-k does
+                b1 = tl.full([BLOCK_W, BLOCK_R], -1.0, tl.float32)
+                b2 = b1
+                b3 = b1
+                b4 = b1
+                y1 = tl.zeros([BLOCK_W, BLOCK_R], dtype=tl.float32)
+                y2 = y1
+                y3 = y1
+                y4 = y1
+                for j in tl.static_range(KNN):
+                    klx = tl.load(knn_lx_ptr + mid * KNN + j, mask=live,
+                                  other=1e9)[None, :]
+                    ky = tl.load(knn_y_ptr + mid * KNN + j, mask=live,
+                                 other=0.0)[None, :]
+                    v = tl.abs(lx - klx) + 1e-6
+                    v = tl.where(klx >= 5e8, 0.0, 1.0 / v)
+                    c1 = v > b1
+                    c2 = v > b2
+                    c3 = v > b3
+                    c4 = v > b4
+                    b4 = tl.where(c3, b3, tl.where(c4, v, b4))
+                    y4 = tl.where(c3, y3, tl.where(c4, ky, y4))
+                    b3 = tl.where(c2, b2, tl.where(c3, v, b3))
+                    y3 = tl.where(c2, y2, tl.where(c3, ky, y3))
+                    b2 = tl.where(c1, b1, tl.where(c2, v, b2))
+                    y2 = tl.where(c1, y1, tl.where(c2, ky, y2))
+                    b1 = tl.where(c1, v, b1)
+                    y1 = tl.where(c1, ky, y1)
+                num = b1 * y1 + b2 * y2 + b3 * y3 + b4 * y4
+                den = b1 + b2 + b3 + b4
+                knn = num / tl.where(den < 1e-30, 1e-30, den)
+                y = tl.where(kind == 2, knn, y)
+            y = tl.where(y < 0.0, 0.0, y)
+            acc += tl.where(cell, wt * y, 0.0)
+        # this program alone owns these totals: one plain store each
+        tl.store(out_ptr + w * n_seg + seg, tl.sum(acc, axis=1),
+                 mask=w_live)
 
     return bank_score_kernel
 
@@ -469,7 +501,9 @@ def bank_score(banks: Dict[str, torch.Tensor], ids: torch.Tensor,
                seg_tiles: torch.Tensor, with_knn: bool) -> torch.Tensor:
     """Kernel K0: ``[W, n_seg]`` float32 totals (see
     :func:`bank_score_plain` for the contract).  CPU tensors take the
-    plain version; CUDA tensors launch the Triton kernel."""
+    plain version; CUDA tensors launch the Triton kernel, one launch for
+    the whole grid.  ``sizes``/``weights`` may be row slices of a wider
+    grid (unit stride along records, a shared row stride)."""
     sig_slots = int(banks["sig_c"].shape[1])
     knn_slots = int(banks["knn_lx"].shape[1])
     _note_specialisation((bool(with_knn), sig_slots, knn_slots))
@@ -479,111 +513,115 @@ def bank_score(banks: Dict[str, torch.Tensor], ids: torch.Tensor,
                                 with_knn)
     if dev.type != "cuda":
         raise ValueError(f"bank_score runs on cpu or cuda, not {dev}")
-    tensors = [banks[k] for k in _BANK_KEYS] + [ids, sizes, weights,
-                                                seg_tiles]
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("bank_score needs contiguous tensors on "
-                             f"{dev}")
+    bank_list = [banks[k] for k in _BANK_KEYS]
+    for t in bank_list + [ids, sizes, weights, seg_tiles]:
+        if t.device != dev:
+            raise ValueError(f"bank_score needs every tensor on {dev}")
+    for t in bank_list + [ids, seg_tiles]:
+        if not t.is_contiguous():
+            raise ValueError("bank_score needs contiguous banks, ids and "
+                             "segment cuts")
     if ids.dtype != torch.int32 or seg_tiles.dtype != torch.int32 or \
             sizes.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError("bank_score takes int32 ids/seg_tiles and float32 "
                         "sizes/weights")
     if sizes.dim() != 2 or sizes.shape != weights.shape or \
-            sizes.shape[1] != ids.shape[0] or ids.shape[0] % TILE:
+            sizes.shape[1] != ids.shape[0] or ids.shape[0] % TILE or \
+            sizes.stride() != weights.stride() or \
+            (sizes.shape[1] > 1 and sizes.stride(1) != 1):
         raise ValueError("bank_score needs ids [R] and sizes/weights "
-                         "[W, R] with R a TILE multiple")
-    w_axis, n_seg = int(sizes.shape[0]), int(seg_tiles.shape[0]) - 1
-    out = torch.zeros((w_axis, n_seg), dtype=torch.float32, device=dev)
-    if n_seg == 0 or w_axis == 0:
-        return out
+                         "[W, R] with R a TILE multiple, unit record "
+                         "stride and one row stride")
+    w_axis, n_rec = int(sizes.shape[0]), int(sizes.shape[1])
+    stride_w = int(sizes.stride(0))
+    if w_axis * max(stride_w, n_rec) >= 1 << 31:
+        raise ValueError("bank_score indexes in int32: split the grid")
+    n_seg = int(seg_tiles.shape[0]) - 1
+    if n_seg <= 0 or w_axis == 0 or n_rec == 0:
+        return torch.zeros((w_axis, max(n_seg, 0)), dtype=torch.float32,
+                           device=dev)
+    # every (w, design) total is stored by its program, empty designs too
+    out = torch.empty((w_axis, n_seg), dtype=torch.float32, device=dev)
     kernel = _k0_kernel()
+    grid = (n_seg, -(-w_axis // _BLOCK_W))
     with torch.cuda.device(dev):
-        kernel[(n_seg,)](*tensors, out, w_axis, int(sizes.shape[1]), n_seg,
-                         WITH_KNN=bool(with_knn), SIG=sig_slots,
-                         KNN=knn_slots, TILE_R=TILE, BLOCK_R=_BLOCK_R,
-                         num_warps=4)
+        kernel[grid](*bank_list, ids, sizes, weights, seg_tiles, out,
+                     w_axis, stride_w, n_seg,
+                     WITH_KNN=bool(with_knn), SIG=sig_slots, KNN=knn_slots,
+                     TILE_R=TILE, BLOCK_W=_BLOCK_W, BLOCK_R=_BLOCK_R,
+                     num_warps=_NUM_WARPS)
     _K0_LAUNCHES.hit()
     return out
 
 
 # ---------------------------------------------------------------------------
-# Chunking, padding and accumulation around K0
+# Layout around K0: real-record cuts, device residency, chunks
 # ---------------------------------------------------------------------------
-def _pad_records(ids: np.ndarray, sizes: np.ndarray, weights: np.ndarray,
-                 tile_segments: np.ndarray, bucket: int
-                 ) -> Tuple[np.ndarray, ...]:
-    """Pad a tile-aligned record block to ``bucket`` rows (and its tile
-    segments to ``bucket // TILE``); pad rows carry weight 0 so they
-    contribute exactly nothing.  Pad segments repeat the *last* real
-    segment id, keeping the segment order sorted."""
-    n = len(ids)
-    if n == bucket:
-        return (np.asarray(ids, np.int32), np.asarray(sizes, np.float32),
-                np.asarray(weights, np.float32),
-                np.asarray(tile_segments, np.int32))
-    pad = bucket - n
-    seg_pad = bucket // TILE - len(tile_segments)
-    seg_fill = tile_segments[-1] if len(tile_segments) else 0
-    return (np.concatenate([ids, np.zeros(pad, ids.dtype)]).astype(np.int32),
-            np.concatenate([sizes, np.ones(pad, sizes.dtype)]
-                           ).astype(np.float32),
-            np.concatenate([weights, np.zeros(pad, weights.dtype)]
-                           ).astype(np.float32),
-            np.concatenate([tile_segments,
-                            np.full(seg_pad, seg_fill,
-                                    tile_segments.dtype)]
-                           ).astype(np.int32))
-
-
-def pad_sweep(ids: np.ndarray, sizes: np.ndarray, weights: np.ndarray,
-              tile_segments: np.ndarray, bucket: int
-              ) -> Tuple[np.ndarray, ...]:
-    """:func:`_pad_records` for sweep layouts: ``sizes``/``weights`` pad
-    along their record axis (axis 1), ``ids``/``tile_segments`` stay
-    1-D.  Pad ids repeat a REAL model id, so the availability check may
-    run on the padded array."""
-    n = len(ids)
-    if n == bucket:
-        return (np.asarray(ids, np.int32), np.asarray(sizes, np.float32),
-                np.asarray(weights, np.float32),
-                np.asarray(tile_segments, np.int32))
-    pad = bucket - n
-    w = sizes.shape[0]
-    seg_pad = bucket // TILE - len(tile_segments)
-    seg_fill = tile_segments[-1] if len(tile_segments) else 0
-    pad_id = ids[-1] if n else 0
-    return (np.concatenate([ids, np.full(pad, pad_id, ids.dtype)]
-                           ).astype(np.int32),
-            np.concatenate([sizes, np.ones((w, pad), sizes.dtype)],
-                           axis=1).astype(np.float32),
-            np.concatenate([weights, np.zeros((w, pad), weights.dtype)],
-                           axis=1).astype(np.float32),
-            np.concatenate([tile_segments,
-                            np.full(seg_pad, seg_fill,
-                                    tile_segments.dtype)]
-                           ).astype(np.int32))
+def segment_cuts(tile_segments: np.ndarray, n_segments: int) -> np.ndarray:
+    """Per-segment tile cuts over the real records: design ``s`` owns
+    tiles ``cuts[s]:cuts[s + 1]`` of the sorted, unpadded
+    ``tile_segments`` (a design without records owns none)."""
+    return np.searchsorted(np.asarray(tile_segments),
+                           np.arange(n_segments + 1),
+                           side="left").astype(np.int32)
 
 
 def sweep_chunk(w_axis: int) -> int:
     """Largest per-chunk record count of a W-workload sweep: keeps
-    W x chunk under the fused-record ceiling, cut on tile boundaries so
+    W x chunk under the device-memory ceiling, cut on tile boundaries so
     no design block is ever split mid-tile."""
     return max((_MAX_FUSED_RECORDS // max(w_axis, 1)) // TILE * TILE,
                TILE)
 
 
-def to_device_sweep(ids, sizes, weights, tile_segments,
-                    device: Optional[runtime.DeviceLike] = None) -> Tuple:
-    """Commit padded sweep arrays to the device when they fit one fused
-    chunk (a retained sweep then skips every host->device copy on repeat
-    scores); multi-chunk sweeps stay host-side, where the chunk loop
-    slices them."""
-    if len(ids) > sweep_chunk(sizes.shape[0]):
-        return ids, sizes, weights, tile_segments
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One host->device copy (the only one a score makes)."""
+    return torch.tensor(a, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSweep:
+    """A ``[W, R]`` grid of records laid out for K0 once (a frontier is
+    the ``W = 1`` case).
+
+    ``cuts`` (:func:`segment_cuts`) hold each design's tiles over the
+    real records.  When the grid has at most ``_MAX_FUSED_RECORDS``
+    cells, ``arrays`` — ids, sizes, weights and cuts — are tensors
+    resident on ``device`` and a score is one K0 launch with no copy;
+    otherwise they are float32/int32 host arrays that a score streams to
+    the device in chunks.  The host ids and tile segments serve the
+    availability check and the chunk layout."""
+
+    host_ids: np.ndarray        # int32 [R]
+    tile_segments: np.ndarray   # [R // TILE], sorted ascending
+    cuts: np.ndarray            # int32 [n_segments + 1]
+    arrays: Tuple               # (ids, sizes, weights, cuts)
+    n_segments: int
+    device: torch.device
+    resident: bool
+
+    @property
+    def w_axis(self) -> int:
+        return int(self.arrays[1].shape[0])
+
+
+def to_device_sweep(ids, sizes, weights, tile_segments, n_segments: int,
+                    device: Optional[runtime.DeviceLike] = None
+                    ) -> DeviceSweep:
+    """Lay out a sweep (``sizes``/``weights`` ``[W, R]``, ``ids`` ``[R]``,
+    TILE-aligned per design, ``tile_segments`` sorted ascending) for K0:
+    its real-record cuts, and the grid itself on the device when it fits
+    the ceiling."""
     dev = runtime.device(device)
-    return tuple(torch.as_tensor(a, device=dev)
-                 for a in (ids, sizes, weights, tile_segments))
+    host_ids = np.asarray(ids, np.int32)
+    tiles = np.asarray(tile_segments)
+    cuts = segment_cuts(tiles, n_segments)
+    host = (host_ids, np.asarray(sizes, np.float32),
+            np.asarray(weights, np.float32), cuts)
+    resident = host[1].size <= _MAX_FUSED_RECORDS
+    arrays = tuple(_to_device(a, dev) for a in host) if resident else host
+    return DeviceSweep(host_ids, tiles, cuts, arrays, n_segments, dev,
+                       resident)
 
 
 def _check_frontier(table: DeviceTable, ids: np.ndarray) -> None:
@@ -601,111 +639,46 @@ def _refuse_shard(shard: Optional[bool]) -> None:
             "score on one device (shard=None or False)")
 
 
-def _accumulate(table: DeviceTable, totals: torch.Tensor, ids, sizes,
-                weights, host_tiles: np.ndarray) -> None:
-    """Score one padded chunk with K0 and add it into ``totals``
-    (float64 ``[W, n_segments]``, on the table's device).
-
-    The chunk's tiles belong to the contiguous segment range
-    ``host_tiles[0]..host_tiles[-1]``; K0 gets that range's per-segment
-    tile offsets (``templatecost.segment_ranges`` with one part per
-    segment) and returns one float32 column per segment.  Adding the
-    columns into their slice of ``totals`` equals the reference's
-    full-width ``totals += out``: every other column would add 0.0."""
-    from repro_torch.core.templatecost import segment_ranges  # circular
+def _score_chunks(table: DeviceTable, ds: DeviceSweep) -> torch.Tensor:
+    """Float64 ``[W, n_segments]`` totals of a grid past the ceiling: one
+    K0 launch per :func:`sweep_chunk` records, each chunk copied to the
+    device and given its designs' cuts clipped to its tiles.  A design
+    split across two chunks adds its two partial totals."""
+    ids, sizes, weights, cuts = ds.arrays
     dev = table.device
-    seg_lo, seg_hi = int(host_tiles[0]), int(host_tiles[-1]) + 1
-    n_local = seg_hi - seg_lo
-    _, tile_cuts = segment_ranges(host_tiles - seg_lo, n_local, n_local)
-    part = bank_score(
-        table.banks, torch.as_tensor(ids, device=dev),
-        torch.as_tensor(sizes, device=dev),
-        torch.as_tensor(weights, device=dev),
-        torch.as_tensor(tile_cuts.astype(np.int32), device=dev),
-        table.has_knn)
-    totals[:, seg_lo:seg_hi] += part.to(torch.float64)
+    totals = torch.zeros((ds.w_axis, ds.n_segments), dtype=torch.float64,
+                         device=dev)
+    n_tiles = len(ds.tile_segments)
+    step = sweep_chunk(ds.w_axis) // TILE
+    for t_lo in range(0, n_tiles, step):
+        t_hi = min(t_lo + step, n_tiles)
+        seg_lo = int(ds.tile_segments[t_lo])
+        seg_hi = int(ds.tile_segments[t_hi - 1]) + 1
+        local = np.clip(cuts[seg_lo:seg_hi + 1], t_lo, t_hi) - t_lo
+        rows = slice(t_lo * TILE, t_hi * TILE)
+        part = bank_score(table.banks, _to_device(ids[rows], dev),
+                          _to_device(sizes[:, rows], dev),
+                          _to_device(weights[:, rows], dev),
+                          _to_device(local.astype(np.int32), dev),
+                          table.has_knn)
+        totals[:, seg_lo:seg_hi] += part.to(torch.float64)
+    return totals
 
 
-def score_frontier(ids: np.ndarray, sizes: np.ndarray, weights: np.ndarray,
-                   tile_segments: np.ndarray, n_segments: int,
-                   hw: HardwareProfile,
-                   shard: Optional[bool] = None,
-                   device: Optional[runtime.DeviceLike] = None
-                   ) -> np.ndarray:
-    """Per-design totals for packed frontier records.
-
-    Records must be TILE-aligned per design and ``tile_segments`` sorted
-    ascending — exactly the layout
-    :func:`repro_torch.core.batchcost.pack_frontier` emits.  One K0
-    launch per ``_MAX_FUSED_RECORDS`` chunk.  ``device`` picks the
-    device (default: :func:`repro_torch.runtime.device`); ``shard=True``
-    raises until multi-GPU scoring is ported.
-    """
+def score_sweep(ds: DeviceSweep, hw: HardwareProfile,
+                shard: Optional[bool] = None) -> np.ndarray:
+    """``[W, n_segments]`` totals of a grid laid out by
+    :func:`to_device_sweep` (a frontier is the ``W = 1`` sweep) under
+    ``hw``: one K0 launch when the grid is resident, else one per chunk.
+    ``shard=True`` raises until multi-GPU scoring is ported."""
     _refuse_shard(shard)
-    if n_segments == 0:
-        return np.zeros(0, np.float64)
-    table = device_table(hw, device)
-    _check_frontier(table, ids)
-    totals = torch.zeros((1, n_segments), dtype=torch.float64,
-                         device=table.device)
-    for lo in range(0, max(len(ids), 1), _MAX_FUSED_RECORDS):
-        chunk = slice(lo, lo + _MAX_FUSED_RECORDS)
-        tile_chunk = slice(lo // TILE, (lo + _MAX_FUSED_RECORDS) // TILE)
-        bucket = _pow2(len(ids[chunk]), 16)
-        p_ids, p_sizes, p_weights, p_tiles = _pad_records(
-            ids[chunk], sizes[chunk], weights[chunk],
-            tile_segments[tile_chunk], bucket)
-        _accumulate(table, totals, p_ids, p_sizes[None], p_weights[None],
-                    p_tiles)
-    return faults.corrupt("devicecost.fused", totals[0].cpu().numpy())
-
-
-def score_sweep(ids, sizes, weights, tile_segments, n_segments: int,
-                hw: HardwareProfile,
-                host_ids: Optional[np.ndarray] = None,
-                host_tiles: Optional[np.ndarray] = None,
-                shard: Optional[bool] = None,
-                device: Optional[runtime.DeviceLike] = None) -> np.ndarray:
-    """Per-(workload, design) totals for a rectangular sweep.
-
-    ``sizes``/``weights`` are ``[W, R]`` with a shared record layout
-    (``ids`` ``[R]``, TILE-aligned per design, ``tile_segments`` sorted
-    ascending — the layout :func:`repro_torch.core.batchcost.pack_sweep`
-    emits); numpy arrays or (already padded, e.g. via
-    :func:`to_device_sweep`) device tensors, in which case pass
-    ``host_ids``/``host_tiles`` (host copies) so the availability check
-    and the segment layout never pull arrays back from the device.
-    Returns ``[W, n_segments]``.  A sweep that fits one chunk is one K0
-    launch; a larger one is one launch per :func:`sweep_chunk` records,
-    accumulated in float64 in the reference's order.
-    """
-    _refuse_shard(shard)
-    w_axis = int(sizes.shape[0])
-    if n_segments == 0 or w_axis == 0:
-        return np.zeros((w_axis, n_segments), np.float64)
-    table = device_table(hw, device)
-    host_ids = np.asarray(ids) if host_ids is None else host_ids
-    host_tiles = np.asarray(tile_segments) if host_tiles is None \
-        else host_tiles
-    _check_frontier(table, host_ids)
-    chunk_r = sweep_chunk(w_axis)
-    n = len(host_ids)
-    totals = torch.zeros((w_axis, n_segments), dtype=torch.float64,
-                         device=table.device)
-    if n == _pow2(n, 16) and n <= chunk_r:
-        # bucket-aligned single chunk — the steady path: PackedSweep
-        # hands over cached padded device-resident arrays plus host copies
-        _accumulate(table, totals, ids, sizes, weights, host_tiles)
-        return faults.corrupt("devicecost.fused", totals.cpu().numpy())
-    ids = host_ids
-    sizes, weights = np.asarray(sizes), np.asarray(weights)
-    tile_segments = host_tiles
-    for lo in range(0, max(n, 1), chunk_r):
-        chunk = slice(lo, lo + chunk_r)
-        tile_chunk = slice(lo // TILE, (lo + chunk_r) // TILE)
-        bucket = _pow2(len(ids[chunk]), 16)
-        p_ids, p_sizes, p_weights, p_tiles = pad_sweep(
-            ids[chunk], sizes[:, chunk], weights[:, chunk],
-            tile_segments[tile_chunk], bucket)
-        _accumulate(table, totals, p_ids, p_sizes, p_weights, p_tiles)
+    if ds.n_segments == 0 or ds.w_axis == 0:
+        return np.zeros((ds.w_axis, ds.n_segments), np.float64)
+    table = device_table(hw, ds.device)
+    _check_frontier(table, ds.host_ids)
+    if ds.resident:
+        totals = bank_score(table.banks, *ds.arrays,
+                            table.has_knn).to(torch.float64)
+    else:
+        totals = _score_chunks(table, ds)
     return faults.corrupt("devicecost.fused", totals.cpu().numpy())

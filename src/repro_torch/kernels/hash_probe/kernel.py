@@ -2,9 +2,12 @@
 
 Replaces the reference's Pallas ``hash_probe_kernel`` / ``_probe_kernel``
 (``repro/kernels/hash_probe/kernel.py``), which compared every query with
-every bucket block.  Here one warp owns one query, hashes it in uint32
-and reads only its own bucket row.  Bound on the H100: bytes, about
-``Q * (CAP * 4 + 32)`` (see the source for the design).
+every bucket block.  Here each query reads only its own bucket row: one
+warp owns 32 queries and issues all their row loads (16 bytes a lane)
+before any compare.  Bound on the H100: bytes, about
+``Q * (CAP * 4 + 16)`` (see the source for the design).  Rows read as
+``int4`` when ``cap`` is a multiple of 4 and the table 16-byte aligned,
+else as scalars — both inside the kernel.
 
 Multiply-shift family (Dietzfelbinger, as in the paper):
     h(x) = (a * x mod 2^32) >> (32 - s),  buckets = 2^s, a odd.
@@ -53,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("hash_probe")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.hash_probe_launch.argtypes = [p, p, i64, p, i64, ctypes.c_uint32,
-                                      i32, p, p, p]
+                                      i32, i32, p, p, p]
     lib.hash_probe_launch.restype = i32
     return lib
 
@@ -75,6 +78,10 @@ def hash_probe_kernel(table_keys: torch.Tensor, table_values: torch.Tensor,
             queries.dim() != 1:
         raise ValueError(f"table must be [2^s, cap] = [{1 << s}, cap] "
                          f"keys and values, queries 1-D")
+    if nb * cap >= 1 << 31:
+        raise ValueError("hash_probe answers int32 slot positions: the "
+                         "table must hold fewer than 2^31 slots")
+    vec = cap % 4 == 0 and table_keys.data_ptr() % 16 == 0
     q = queries.shape[0]
     pos = torch.empty(q, dtype=torch.int32, device=queries.device)
     val = torch.empty(q, dtype=torch.int32, device=queries.device)
@@ -82,7 +89,7 @@ def hash_probe_kernel(table_keys: torch.Tensor, table_values: torch.Tensor,
         return pos, val
     status = _lib().hash_probe_launch(
         table_keys.data_ptr(), table_values.data_ptr(), cap,
-        queries.data_ptr(), q, a & _MASK32, s, pos.data_ptr(),
+        queries.data_ptr(), q, a & _MASK32, s, int(vec), pos.data_ptr(),
         val.data_ptr(), torch.cuda.current_stream(queries.device).cuda_stream)
     build.check(status, "hash_probe")
     LAUNCHES.hit()

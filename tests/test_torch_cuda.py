@@ -63,7 +63,12 @@ def test_sorted_search_kernel_matches_plain(cuda, n, q, dtype):
 
 @pytest.mark.parametrize("s,cap,n,q", [(6, 32, 500, 301), (8, 16, 1000, 64),
                                        (10, 8, 2000, 4097),
-                                       (7, 40, 3000, 1001), (1, 3, 5, 9)])
+                                       (7, 40, 3000, 1001), (1, 3, 5, 9),
+                                       # rows without 16-byte alignment,
+                                       # a row longer than 32 slots, two
+                                       # buckets, a full 2^16 + 5 queries
+                                       (5, 33, 700, 333), (1, 32, 40, 45),
+                                       (12, 32, 60000, 65541)])
 def test_hash_probe_kernel_matches_plain(cuda, s, cap, n, q):
     rng = np.random.default_rng(s * cap)
     keys = rng.choice(1 << 20, n, replace=False)
@@ -81,6 +86,28 @@ def test_hash_probe_kernel_matches_plain(cuda, s, cap, n, q):
     assert launch_counts()["hash_probe"] == before + 1
 
 
+def test_hash_probe_kernel_unaligned_table(cuda):
+    """A table 4 bytes off 16-byte alignment (cap a multiple of 4) takes
+    the kernel's scalar loads, with the same answers."""
+    rng = np.random.default_rng(17)
+    s, cap = 7, 32
+    keys = rng.choice(1 << 20, 3000, replace=False)
+    tk, tv = hp_ref.build_table(keys, keys * 5 + 2, s, DEFAULT_A, cap)
+    buf = torch.zeros(tk.size + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = torch.as_tensor(tk.ravel(), device=cuda)
+    t_k = buf[1:].view(tk.shape)
+    assert t_k.data_ptr() % 16 == 4 and t_k.is_contiguous()
+    t_v = torch.as_tensor(tv, device=cuda)
+    queries = np.concatenate([keys[:500], rng.integers(1 << 21, 1 << 22,
+                                                       501)])
+    queries[0] = hp_ref.EMPTY_KEY
+    qq = torch.as_tensor(queries.astype(np.int32), device=cuda)
+    p1, v1 = hp_kernel.hash_probe_kernel(t_k, t_v, qq, DEFAULT_A, s)
+    p2, v2 = hp_ref.hash_probe_ref(t_k, t_v, qq, DEFAULT_A, s)
+    torch.testing.assert_close(p1, p2, rtol=0, atol=0)
+    torch.testing.assert_close(v1, v2, rtol=0, atol=0)
+
+
 def _knn_hw():
     base = hardware.hw1()
     xs = np.logspace(1, 6, 12).astype(np.float32)
@@ -91,31 +118,62 @@ def _knn_hw():
     return HardwareProfile("HW1+knn", models)
 
 
+def _ragged_grid(rng, n_points):
+    """Designs of 1-6 tiles and longer than K0's record block (9 and 17
+    tiles), one empty design, ids over the first 14 models."""
+    n_tiles = [1, 2, 3, 4, 5, 6, 0, 9, 17, 3]
+    r = sum(n_tiles) * devicecost.TILE
+    ids = rng.integers(0, 14, r).astype(np.int32)
+    sizes = np.exp(rng.uniform(0, 20, (n_points, r))).astype(np.float32)
+    weights = rng.uniform(0, 3, (n_points, r)).astype(np.float32)
+    cuts = np.concatenate([[0], np.cumsum(n_tiles)]).astype(np.int32)
+    return ids, sizes, weights, cuts
+
+
 @pytest.mark.parametrize("profile", ["hw1", "knn"])
-@pytest.mark.parametrize("n_points", [1, 5])
-def test_bank_score_kernel_matches_plain(cuda, profile, n_points):
+@pytest.mark.parametrize("n_points", [1, 5, 64, 67])
+@pytest.mark.parametrize("layout", ["packed", "ragged"])
+def test_bank_score_kernel_matches_plain(cuda, profile, n_points, layout):
+    hw = hardware.hw1() if profile == "hw1" else _knn_hw()
+    table = devicecost.device_table(hw, cuda)
+    if layout == "packed":
+        specs = [el.spec_btree(), el.spec_hash_table(), el.spec_skip_list(),
+                 el.spec_btree(fanout=40)] * 7
+        sweep = pack_sweep(specs, [Workload(n_entries=500_000)] * n_points,
+                           [{"get": 10.0 + i, "update": 5.0}
+                            for i in range(n_points)])
+        args = sweep._sweep_arrays(torch.device(cuda)).arrays
+    else:
+        args = [torch.as_tensor(a, device=cuda) for a in
+                _ragged_grid(np.random.default_rng(n_points), n_points)]
+    reset_launch_counts()
+    got = devicecost.bank_score(table.banks, *args, table.has_knn)
+    assert launch_counts()["bank_score"] == 1
+    want = devicecost.bank_score_plain(table.banks, *args, table.has_knn)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("profile", ["hw1", "knn"])
+@pytest.mark.parametrize("n_points", [1, 64])
+def test_one_k0_launch_per_sweep(cuda, profile, n_points, monkeypatch):
+    """A rectangular sweep scores in one K0 launch from its resident
+    layout; a repeat score copies nothing to the card."""
     hw = hardware.hw1() if profile == "hw1" else _knn_hw()
     specs = [el.spec_btree(), el.spec_hash_table(), el.spec_skip_list(),
-             el.spec_btree(fanout=40)] * 7
+             el.spec_btree(fanout=40)] * 40
     sweep = pack_sweep(specs, [Workload(n_entries=500_000)] * n_points,
                        [{"get": 10.0 + i, "update": 5.0}
                         for i in range(n_points)])
-    f0 = sweep.frontiers[0]
-    table = devicecost.device_table(hw, cuda)
-    bucket = devicecost._pow2(len(f0.ids), 16)
-    ids, sizes, weights, tiles = devicecost.pad_sweep(
-        np.asarray(f0.ids, np.int32),
-        np.stack([f.sizes for f in sweep.frontiers]),
-        np.stack([f.weights for f in sweep.frontiers]),
-        np.asarray(f0.tile_segments, np.int32), bucket)
-    seg_tiles = np.searchsorted(tiles, np.arange(len(specs) + 1))
-    args = [torch.as_tensor(a, device=cuda) for a in
-            (ids, sizes, weights, seg_tiles.astype(np.int32))]
     reset_launch_counts()
-    got = devicecost.bank_score(table.banks, *args, table.has_knn)
-    want = devicecost.bank_score_plain(table.banks, *args, table.has_knn)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    fused = sweep.score(hw)
     assert launch_counts()["bank_score"] == 1
+    copies = []
+    monkeypatch.setattr(devicecost, "_to_device",
+                        lambda *a: copies.append(a))
+    np.testing.assert_array_equal(sweep.score(hw), fused)
+    assert copies == [] and launch_counts()["bank_score"] == 2
+    grouped = sweep.score(hw, engine="grouped")
+    np.testing.assert_allclose(fused, grouped, rtol=1e-6)
 
 
 def test_fused_engine_on_the_card_matches_grouped(cuda):

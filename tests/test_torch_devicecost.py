@@ -2,10 +2,12 @@
 
 On the CPU kernel K0's wrapper takes its plain PyTorch version
 (``bank_predict`` + a segment sum), so these tests hold the port's fused
-``score_frontier`` / ``score_sweep`` against the reference's fused engine
-at rtol 1e-6, plus the port's own contracts: chunked == unchunked, a
-what-if-hardware swap adds no kernel specialisation, ``shard=True``
-raises, and plain-path scoring launches no kernel.
+frontier and sweep scoring against the reference's fused engine
+at rtol 1e-6, plus the port's own contracts: chunked == unchunked, the
+real-record cuts equal the reference's padded layout bit for bit, a
+retained sweep stays device-resident, a what-if-hardware swap adds no
+kernel specialisation, ``shard=True`` raises, and plain-path scoring
+launches no kernel.
 """
 import dataclasses
 
@@ -13,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import batchcost as r_batch, elements as r_el
+from repro.core import batchcost as r_batch, devicecost as r_dc
+from repro.core import elements as r_el
 from repro.core import hardware as r_hw, models as r_models
 from repro.core import synthesis as r_syn, whatif as r_wi
 from repro_torch import runtime
 from repro_torch.core import batchcost as p_batch, devicecost as p_dc
 from repro_torch.core import elements as p_el, hardware as p_hw
-from repro_torch.core import synthesis as p_syn, whatif as p_wi
+from repro_torch.core import synthesis as p_syn, templatecost as p_tc
+from repro_torch.core import whatif as p_wi
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.testing import faults
 
@@ -117,6 +121,72 @@ def test_chunked_scoring_matches_unchunked(monkeypatch, kind):
     object.__setattr__(packed, "_f32", None)     # drop the padded cache
     chunked = packed.score(hw)
     np.testing.assert_allclose(chunked, full, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["frontier", "sweep"])
+@pytest.mark.parametrize("profile", ["hw1", "knn"])
+def test_real_record_cuts_match_the_padded_layout(kind, profile):
+    """K0 reads real records only: on the reference's padded layout (pow2
+    bucket, pad rows of weight 0 whose tiles belong to the last design),
+    the port's real-record cuts give totals bit-identical to the old cuts
+    that handed the pad tiles to the last design."""
+    _, hw = _pair(profile)
+    w = p_syn.Workload(n_entries=500_000)
+    if kind == "frontier":
+        packed = p_batch.pack_frontier(_specs(p_el) * 9, w, MIX)
+        f0, n_seg = packed, packed.n_segments
+        sizes, weights = packed.sizes[None], packed.weights[None]
+    else:
+        packed = p_batch.pack_sweep(_specs(p_el) * 9, [w] * 3,
+                                    p_wi.read_fraction_mixes([0.1, 0.5, 1]))
+        f0, n_seg = packed.frontiers[0], packed.n_designs
+        sizes = np.stack([f.sizes for f in packed.frontiers])
+        weights = np.stack([f.weights for f in packed.frontiers])
+    bucket = r_dc._pow2(len(f0.ids), 16)
+    assert bucket > len(f0.ids)
+    ids, sizes, weights, tiles = r_dc.pad_sweep(
+        np.asarray(f0.ids, np.int32), sizes, weights,
+        np.asarray(f0.tile_segments, np.int32), bucket)
+    _, old_cuts = p_tc.segment_ranges(tiles, n_seg, n_seg)
+    new_cuts = p_dc.segment_cuts(f0.tile_segments, n_seg)
+    assert old_cuts[-1] == bucket // p_dc.TILE
+    assert new_cuts[-1] == len(f0.tile_segments)
+    table = p_dc.device_table(hw)
+    args = [torch.as_tensor(a) for a in (ids, sizes, weights)]
+    old = p_dc.bank_score_plain(table.banks, *args,
+                                torch.as_tensor(old_cuts.astype(np.int32)),
+                                table.has_knn)
+    new = p_dc.bank_score_plain(table.banks, *args,
+                                torch.as_tensor(new_cuts), table.has_knn)
+    assert torch.equal(old, new)
+    got = packed.score(hw)
+    np.testing.assert_allclose(got.reshape(new.shape), new.double().numpy(),
+                               rtol=1e-6)
+
+
+def test_large_sweep_stays_resident_and_repeats_copy_nothing(monkeypatch):
+    """A sweep larger than one of the reference's 2^18-cell chunks is laid
+    out on the device by its first score and scored in one K0 call; a
+    repeat score makes no host->device copy."""
+    hw = p_hw.hw1()
+    sweep = p_batch.pack_sweep(
+        _specs(p_el) * 60, [p_syn.Workload(n_entries=500_000)] * 64,
+        p_wi.read_fraction_mixes(np.linspace(0.0, 1.0, 64)))
+    assert len(sweep.frontiers[0].ids) > r_dc.sweep_chunk(64)
+    calls, copies = [], []
+    score, to_device = p_dc.bank_score, p_dc._to_device
+    monkeypatch.setattr(p_dc, "bank_score",
+                        lambda *a: calls.append(1) or score(*a))
+    first = sweep.score(hw)
+    laid = sweep._f32[runtime.device()]
+    assert laid.resident and len(calls) == 1
+    assert all(isinstance(a, torch.Tensor) for a in laid.arrays)
+    monkeypatch.setattr(p_dc, "_to_device",
+                        lambda *a: copies.append(1) or to_device(*a))
+    np.testing.assert_array_equal(sweep.score(hw), first)
+    assert copies == [] and len(calls) == 2
+    np.testing.assert_allclose(first, sweep.score(hw, engine="grouped"),
+                               rtol=1e-6)
 
 
 def test_hardware_swap_adds_no_specialisation():

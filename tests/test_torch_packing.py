@@ -82,21 +82,35 @@ def test_non_rectangular_sweep_matches_reference():
 
 
 def test_sweep_pad_layout_matches_reference():
-    """The padded device layout (pow2 bucket, pad ids repeating a real
-    model, pad tiles repeating the last segment) is the reference's."""
+    """The port's device layout is the reference's padded layout without
+    its pad rows: the same records, and per-segment cuts that end at the
+    last real tile.  The reference's pad rows (pow2 bucket, pad ids
+    repeating a real model, pad tiles repeating the last segment) carry
+    weight 0, so dropping them changes no total."""
     front = p_ac.enumerate_frontier((), max_depth=2)
     r_front = r_ac.enumerate_frontier((), max_depth=2)
     p_f = p_batch.pack_frontier(front, p_syn.Workload(n_entries=10_000))
     r_f = r_batch.pack_frontier(r_front, r_syn.Workload(n_entries=10_000))
-    bucket = p_dc._pow2(len(p_f.ids), 16)
-    assert bucket == r_dc._pow2(len(r_f.ids), 16)
-    p_pad = p_dc.pad_sweep(p_f.ids, p_f.sizes[None], p_f.weights[None],
-                           p_f.tile_segments, bucket)
+    bucket = r_dc._pow2(len(r_f.ids), 16)
     r_pad = r_dc.pad_sweep(r_f.ids, r_f.sizes[None], r_f.weights[None],
                            r_f.tile_segments, bucket)
-    assert _names(p_pad[0], p_dc._MODEL_NAMES) == \
-        _names(r_pad[0], r_dc._MODEL_NAMES)
-    for i in (1, 2, 3):
-        np.testing.assert_array_equal(p_pad[i], r_pad[i])
-    assert p_dc.sweep_chunk(64) == r_dc.sweep_chunk(64)
+    laid = p_dc.to_device_sweep(p_f.ids, p_f.sizes[None], p_f.weights[None],
+                                p_f.tile_segments, p_f.n_segments)
+    n = len(p_f.ids)
+    assert bucket > n and laid.resident
+    ids, sizes, weights, cuts = (t.numpy() for t in laid.arrays)
+    assert _names(ids, p_dc._MODEL_NAMES) == \
+        _names(r_pad[0][:n], r_dc._MODEL_NAMES)
+    np.testing.assert_array_equal(sizes, r_pad[1][:, :n])
+    np.testing.assert_array_equal(weights, r_pad[2][:, :n])
+    assert not r_pad[2][:, n:].any()
+    assert (r_pad[3][n // p_dc.TILE:] == r_f.n_segments - 1).all()
+    np.testing.assert_array_equal(
+        cuts, np.searchsorted(r_pad[3][:n // p_dc.TILE],
+                              np.arange(r_f.n_segments + 1)))
+    assert cuts[-1] * p_dc.TILE == n
+    # one launch holds a whole main sweep: W x R under the port's own
+    # device-memory ceiling (the reference chunks at 2^18 cells)
+    assert p_dc.sweep_chunk(64) == p_dc._MAX_FUSED_RECORDS // 64 >= \
+        64 * r_dc.sweep_chunk(64)
     assert p_dc.TILE == r_dc.TILE
