@@ -18,9 +18,9 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   card's busy share).
 * ``kvstore``: the three stores of ``examples/kv_store.py``: sorted array
   (K1) and hash table (K3) at 2^24 keys and 2^20 queries, and the log with
-  a bloom filter (K4 skips misses, K2 scans the log for the rest) at 2^20
-  keys and 2^16 queries; half of each query set present, checked against
-  a numpy oracle.
+  a bloom filter (K4 skips misses in one launch of its mask variant, K2
+  scans the log for the rest) at 2^20 keys and 2^16 queries; half of each
+  query set present, checked against a numpy oracle.
 * ``lm``: qwen2-1.5b at its published widths (28 layers, random weights
   from ``--seed``, float32 parameters, bf16 compute, flash attention) serves
   4 prompts of 2,048 tokens: the fused prefill (K5, all 28 launches on its
@@ -31,13 +31,21 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   further from the float32 logits than the plain path); one prefill and
   four decode steps are traced with ``torch.profiler``.
 * ``kernels``: every kernel against its plain PyTorch version on the
-  card, at the phases' shapes plus ragged ones, with times and bounds.
+  card, at the phases' shapes plus ragged ones, with times and bounds;
+  K1 also at its edges (N around its shared tree's size, N = 1-33, runs of
+  duplicates, the dtype's extremes, unaligned keys, 2^20 queries) with
+  its bound in 32-byte sectors of the keys that fix each rank (the search
+  path's sectors beside it), the Get's time and bound and the tree
+  depth; K4's hits and mask variants, and the bloom_probe op's device
+  time, host time per call and the kernels one call launched (traced).
 
 Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
-``--only whatif`` runs the whatif phase alone and prints no result line.
+``--only whatif`` runs the whatif phase alone and ``--only stores`` times
+K1 and the bloom_probe op at the kvstore shapes; both print no result
+line.
 """
 from __future__ import annotations
 
@@ -254,6 +262,7 @@ def kv_data(seed: int):
 
 
 def phase_kvstore(data) -> dict:
+    """The three stores."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.bloom_probe.ops import (DEFAULT_COEFFS,
@@ -310,6 +319,11 @@ def phase_kvstore(data) -> dict:
 
     m = maybe.cpu().numpy()
     assert m[lg["found"]].all(), "bloom filter: a false negative"
+    from repro_torch.kernels.bloom_probe.ref import _hashes
+    hv = _hashes(lg["queries"], DEFAULT_COEFFS[:BLOOM_K], BLOOM_S)
+    bits = (words[hv >> 5] >> (hv & 31).astype(np.uint32)) & 1
+    assert (m == bits.all(axis=1)).all(), \
+        "bloom membership disagrees with the numpy oracle"
     f, v = found_l.cpu().numpy(), val_l.cpu().numpy()
     hits = int(f.sum())
     assert hits == LOG_Q // 2, f"log+bloom store: {hits} hits"
@@ -322,8 +336,12 @@ def phase_kvstore(data) -> dict:
                   "bloom_false_positives": int(m.sum()) - LOG_Q // 2,
                   "bloom_skipped_misses": int((~m).sum()),
                   "misses": LOG_Q // 2, "probe_s": log_s}
-    for k in ("sorted_search", "hash_probe", "bloom_probe", "scan_filter"):
+    for k in ("sorted_search", "hash_probe", "scan_filter"):
         assert launches.get(k, 0) > 0, f"{k} never launched"
+    # the membership probe is one launch of K4's mask variant
+    assert launches.get("bloom_probe_mask", 0) == 1 and \
+        launches.get("bloom_probe", 0) == 0, \
+        f"the log path's K4 launches: {launches}"
     return out
 
 
@@ -586,21 +604,101 @@ def kernel_k0(frontier, workloads, mixes, rng, launches) -> dict:
                           f"sweep, real records only)"})
 
 
-def _touched_keys(keys_sorted: np.ndarray, queries: np.ndarray) -> int:
-    """Distinct keys the branchless upper-bound searches of this run read
-    (the same loop as csrc/sorted_search.cu, vectorized)."""
+def _search_probes(keys_sorted: np.ndarray, queries: np.ndarray):
+    """Every position the branchless upper-bound searches of this run
+    read, level by level (the loop at the top of csrc/sorted_search.cu,
+    vectorized), and the ranks (clamped to N).  The search path's traffic
+    is this algorithm's, not the function's: it is reported beside the
+    bound, not in it."""
     n = len(keys_sorted)
     base = np.zeros(len(queries), np.int64)
     length = n
-    seen = []
+    probes = []
     while length > 1:
         half = length >> 1
         probe = base + half
-        seen.append(np.unique(probe))
+        probes.append(np.unique(probe))
         base = np.where(keys_sorted[probe] <= queries, probe, base)
         length -= half
-    seen.append(np.unique(base))
-    return int(len(np.unique(np.concatenate(seen))))
+    probes.append(np.unique(base))
+    rank = base + (keys_sorted[base] <= queries)
+    return np.unique(np.concatenate(probes)), rank
+
+
+def _sectors(positions: np.ndarray, itemsize: int) -> int:
+    """Distinct 32-byte sectors that hold these element positions (of an
+    array that starts on a sector)."""
+    return int(len(np.unique(positions * itemsize // 32)))
+
+
+def _bracket(rank: np.ndarray, n: int) -> np.ndarray:
+    """The positions that fix each rank, whatever the search: keys[rank -
+    1] (<= the query) where rank > 0 and keys[rank] (> it) where rank <
+    N."""
+    return np.concatenate([rank[rank > 0] - 1, rank[rank < n]])
+
+
+def _k1_cases(rng, tree_depth):
+    """(keys, values, queries) numpy triples at K1's edges: N below, at
+    and above 2^tree_depth(dtype) (its shared tree's size), N = 1, 2, 31,
+    32, 33, long runs of duplicates, queries below the minimum, above the
+    maximum and equal to the dtype's maximum; for float32 the infinities
+    and both zeros."""
+    cases = []
+    for dtype in (np.int32, np.int64, np.float32):
+        info = np.finfo(dtype) if dtype == np.float32 else np.iinfo(dtype)
+        extremes = [info.min, info.max, -1, 0]
+        if dtype == np.float32:
+            extremes += [-np.inf, np.inf, -0.0, 0.0]
+        extremes = np.asarray(extremes, dtype)
+        top = tree_depth(dtype)
+        # (n, key range, random queries): 2^20 queries are more tiles of
+        # the persistent grid than the card has SMs for every dtype
+        for n, hi, nq in ((1_000_003, 1 << 22, 77_777),
+                          (1 << 22, 1 << 26, 1 << 20),
+                          (2**top - 1, 1 << 20, 7_777),
+                          (2**top, 1 << 20, 7_777),
+                          (2**top + 1, 1 << 20, 7_777), (1, 4, 7_777),
+                          (2, 4, 7_777), (31, 8, 7_777), (32, 8, 7_777),
+                          (33, 8, 7_777), (70_001, 50, 7_777)):
+            k = np.sort(rng.integers(0, hi, n)).astype(dtype)
+            qq = np.concatenate([rng.integers(-5, hi + 5, nq)
+                                 .astype(dtype), extremes])
+            cases.append((k, np.arange(n, dtype=np.int64), qq))
+        runs = [(-5, 3000), (0, 1), (7, 5000), (8, 4096), (info.max, 33)]
+        if dtype == np.float32:
+            runs = [(-np.inf, 2), (-0.0, 40), (0.0, 41)] + runs + \
+                [(np.inf, 3)]
+        k = np.concatenate([np.full(c, v, dtype) for v, c in runs])
+        qq = np.concatenate([np.asarray([-6, -5, 6, 7, 8, 9], dtype),
+                             extremes])
+        cases.append((k, np.arange(len(k), dtype=np.int32), qq))
+    cases.append((np.asarray([7], np.int32), np.asarray([7], np.int32),
+                  np.asarray([6, 7, 8], np.int32)))
+    return cases
+
+
+def _k1_mismatches(kernel, ref, k, v, qq) -> int:
+    mismatches = int((kernel.sorted_search_kernel(k, qq)
+                      != ref.sorted_search_ref(k, qq)).sum())
+    f1, v1 = kernel.sorted_get_kernel(k, v, qq)
+    f2, v2 = ref.sorted_get_ref(k, v, qq)
+    return mismatches + int((f1 != f2).sum()) + int((v1 != v2).sum())
+
+
+def k1_times(sk, sv, q) -> dict:
+    """K1 at the kvstore shape: the search, the Get, their plain versions
+    and torch.searchsorted (the same calls in this and older trees)."""
+    import torch
+    from repro_torch.kernels.sorted_search import kernel, ref
+    return {"ms": timed_ms(lambda: kernel.sorted_search_kernel(sk, q)),
+            "plain_ms": timed_ms(lambda: ref.sorted_search_ref(sk, q)),
+            "library_ms": timed_ms(
+                lambda: torch.searchsorted(sk, q, right=True)),
+            "sorted_get_ms": timed_ms(
+                lambda: kernel.sorted_get_kernel(sk, sv, q)),
+            "sorted_get_plain_ms": timed_ms(
+                lambda: ref.sorted_get_ref(sk, sv, q))}
 
 
 def kernel_k1(data, rng, launches) -> dict:
@@ -608,45 +706,77 @@ def kernel_k1(data, rng, launches) -> dict:
     from repro_torch.kernels.sorted_search import kernel, ref
     keys, values, queries = data["keys"], data["values"], data["queries"]
     order = np.argsort(keys)
-    sk_np = keys[order]
+    sk_np, sv_np = keys[order], values[order]
     sk = torch.as_tensor(sk_np, device=DEVICE)
-    sv = torch.as_tensor(values[order], device=DEVICE)
+    sv = torch.as_tensor(sv_np, device=DEVICE)
     q = torch.as_tensor(queries, device=DEVICE)
-    cases = [(sk, sv, q)]
-    for dtype in (np.int32, np.int64, np.float32):
-        k = np.sort(rng.integers(0, 1 << 22, 1_000_003)).astype(dtype)
-        qq = rng.integers(-5, (1 << 22) + 5, 77_777).astype(dtype)
-        cases.append(tuple(torch.as_tensor(a, device=DEVICE) for a in
-                           (k, np.arange(len(k), dtype=np.int64), qq)))
-    edge = np.asarray([7], np.int32)
-    cases.append(tuple(torch.as_tensor(a, device=DEVICE) for a in
-                       (edge, edge, np.asarray([6, 7, 8], np.int32))))
-    mismatches = 0
-    for k, v, qq in cases:
-        mismatches += int((kernel.sorted_search_kernel(k, qq)
-                           != ref.sorted_search_ref(k, qq)).sum())
-        f1, v1 = kernel.sorted_get_kernel(k, v, qq)
-        f2, v2 = ref.sorted_get_ref(k, v, qq)
-        mismatches += int((f1 != f2).sum()) + int((v1 != v2).sum())
+    mismatches = _k1_mismatches(kernel, ref, sk, sv, q)
+    n_cases = 1
+
+    def tree_depth(dtype):
+        """The most levels K1's shared tree holds for keys of ``dtype``."""
+        return kernel.top_levels(1 << 30, torch.from_numpy(
+            np.zeros(1, dtype)).dtype)
+
+    for k, v, qq in _k1_cases(rng, tree_depth):
+        k, v, qq = (torch.as_tensor(a, device=DEVICE) for a in (k, v, qq))
+        mismatches += _k1_mismatches(kernel, ref, k, v, qq)
+        # the same keys off 16-byte alignment: the scalar window
+        buf = torch.empty(k.shape[0] + 1, dtype=k.dtype, device=DEVICE)
+        buf[1:] = k
+        mismatches += _k1_mismatches(kernel, ref, buf[1:], v, qq)
+        n_cases += 2
     assert mismatches == 0, f"K1 vs plain: {mismatches} mismatches"
-    ms = timed_ms(lambda: kernel.sorted_search_kernel(sk, q))
-    plain_ms = timed_ms(lambda: ref.sorted_search_ref(sk, q))
-    library_ms = timed_ms(lambda: torch.searchsorted(sk, q, right=True))
-    get_ms = timed_ms(lambda: kernel.sorted_get_kernel(sk, sv, q))
-    get_plain_ms = timed_ms(lambda: ref.sorted_get_ref(sk, sv, q))
+    times = k1_times(sk, sv, q)
+    # where a search's time goes: its two kernels, each launch traced
+    # (median of 5)
+    traced = {}
+    for name in ("tree_kernel", "search_kernel"):
+        each = _profile(lambda: kernel.sorted_search_kernel(sk, q), 5,
+                        watch=name)[f"{name}_ms_each"]
+        traced[name] = float(np.median(each)) if each else None
+    # the same queries over every 512th key (2^15 keys): all the levels
+    # come from the shared tree, none from the keys but the last
+    sk_top = sk[::512].contiguous()
+    tree_only_ms = timed_ms(lambda: kernel.sorted_search_kernel(sk_top, q))
     n_q = len(queries)
-    touched = _touched_keys(sk_np, queries)
-    n_bytes = 4 * n_q + 4 * n_q + 4 * touched
+    touched, rank = _search_probes(sk_np, queries)
+    path_sectors = _sectors(touched, 4)
+    # the function's bytes: queries in, ranks out, and the sectors of each
+    # query's bracket keys (the keys that fix its rank)
+    sectors = _sectors(_bracket(rank, len(sk_np)), 4)
+    hit_at = (rank - 1)[(rank > 0) & (sk_np[np.maximum(rank - 1, 0)]
+                                      == queries)]
+    value_sectors = _sectors(hit_at, 4)
+    n_bytes = 4 * n_q + 4 * n_q + 32 * sectors
+    # the Get: queries in, found (1 byte) and values out, the bracket key
+    # sectors and the value sectors of the hits
+    get_bytes = 4 * n_q + n_q + 4 * n_q + 32 * (sectors + value_sectors)
     n_ops = n_q * math.ceil(math.log2(len(keys)))
     return _row("K1 sorted_search", "cuda",
                 "src/repro_torch/csrc/sorted_search.cu",
                 "src/repro/kernels/sorted_search/kernel.py:45 "
                 "(sorted_search_kernel, _search_kernel :31)",
-                launches.get("sorted_search", 0), 0.0, ms, plain_ms,
-                n_bytes, n_ops, "int32", library_ms,
-                {"shape": f"N={len(keys)} Q={n_q}",
-                 "keys_touched": touched, "sorted_get_ms": get_ms,
-                 "sorted_get_plain_ms": get_plain_ms})
+                launches.get("sorted_search", 0), 0.0, times["ms"],
+                times["plain_ms"], n_bytes, n_ops, "int32",
+                times["library_ms"],
+                {"shape": f"N={len(keys)} Q={n_q}", "cases": n_cases,
+                 "top_levels": kernel.top_levels(len(keys)),
+                 "bracket_key_sectors": sectors,
+                 "search_path_keys": int(len(touched)),
+                 "search_path_key_sectors": path_sectors,
+                 "search_path_bound_ms": (4 * n_q + 4 * n_q +
+                                          32 * path_sectors) /
+                 HBM_BYTES_PER_S * 1e3,
+                 "value_sectors_of_hits": value_sectors,
+                 "sorted_get_ms": times["sorted_get_ms"],
+                 "sorted_get_plain_ms": times["sorted_get_plain_ms"],
+                 "sorted_get_bytes": get_bytes,
+                 "traced_ms": traced,
+                 "tree_only_ms": tree_only_ms,
+                 "sorted_get_bound_ms": max(
+                     get_bytes / HBM_BYTES_PER_S * 1e3,
+                     n_ops / INT32_OPS_PER_S * 1e3)})
 
 
 def kernel_k3(data, rng, launches) -> dict:
@@ -740,8 +870,38 @@ def kernel_k2(data, rng, launches) -> dict:
                  "pairs_per_s": n * q / (ms * 1e-3)})
 
 
+def k4_op_times(w_t, lq_t) -> dict:
+    """The log path's membership probe (ops.bloom_probe at the kvstore
+    shape): its device time back to back, its host time per call (host
+    clock over 100 calls, then one synchronise), and the device kernels
+    one call launched, from a trace (the same calls in this and older
+    trees)."""
+    import torch
+    from repro_torch.kernels.bloom_probe.ops import bloom_probe
+
+    def op():
+        return bloom_probe(w_t, lq_t, s=BLOOM_S, num_hashes=BLOOM_K)
+
+    device_ms = timed_ms(op)
+    for _ in range(10):
+        op()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        op()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    # 10 calls traced: a lone 3-microsecond kernel can miss a trace of one
+    trace = _profile(op, 10)
+    return {"op_ms": device_ms, "op_host_us_per_call": host_us,
+            "op_device_kernels": trace["device_events_per_step"],
+            "op_kernel_names": list(trace["top_kernels_ms_per_step"]),
+            "op_traced_device_ms": trace["device_ms_per_step"]}
+
+
 def kernel_k4(data, rng, launches) -> dict:
     import torch
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.bloom_probe import kernel, ref
     from repro_torch.kernels.bloom_probe.ops import DEFAULT_COEFFS
     lg = data["log"]
@@ -761,23 +921,52 @@ def kernel_k4(data, rng, launches) -> dict:
     for args in cases:
         mismatches += int((kernel.bloom_probe_kernel(*args)
                            != ref.bloom_hits_ref(*args)).sum())
+        mismatches += int((kernel.bloom_probe_kernel(*args, mask=True)
+                           != ref.bloom_probe_ref(*args)).sum())
     assert mismatches == 0, f"K4 vs plain: {mismatches} mismatches"
-    ms = timed_ms(lambda: kernel.bloom_probe_kernel(*main))
-    plain_ms = timed_ms(lambda: ref.bloom_hits_ref(*main))
+    ms = timed_ms(lambda: kernel.bloom_probe_kernel(*main, mask=True))
+    hits_ms = timed_ms(lambda: kernel.bloom_probe_kernel(*main))
+    plain_ms = timed_ms(lambda: ref.bloom_probe_ref(*main))
+    hits_plain_ms = timed_ms(lambda: ref.bloom_hits_ref(*main))
+    before = launch_counts()
+    op = k4_op_times(main[0], main[1])
+    after = launch_counts()
+    moved = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)}
+    # every op call is one launch of the mask variant (counters), and the
+    # trace holds that kernel and no other, at most once a call
+    calls = moved.get("bloom_probe_mask", 0)
+    assert moved == {"bloom_probe_mask": calls} and calls > 0, moved
+    names = op["op_kernel_names"]
+    assert len(names) == 1 and "bloom_kernel<true>" in names[0] and \
+        0 < op["op_device_kernels"] <= 1, \
+        f"a bloom_probe op call ran {op['op_device_kernels']} device " \
+        f"kernels: {names}"
     from repro_torch.kernels.bloom_probe.ref import _hashes
     hv = _hashes(lg["queries"], coeffs, BLOOM_S)
     sectors = len(np.unique(hv >> 8))           # 32-byte sectors touched
     n_q = len(lg["queries"])
-    n_bytes = 32 * sectors + 4 * n_q + 4 * n_q * BLOOM_K
+    # the mask variant (the path's): queries in, one byte a query out
+    n_bytes = 32 * sectors + 4 * n_q + n_q
+    hits_bytes = 32 * sectors + 4 * n_q + 4 * n_q * BLOOM_K
     # per (query, hash): multiply, shift, word index, bit test
     n_ops = 4 * n_q * BLOOM_K
     return _row("K4 bloom_probe", "cuda", "src/repro_torch/csrc/bloom_probe.cu",
                 "src/repro/kernels/bloom_probe/kernel.py:52 "
                 "(bloom_probe_kernel, _bloom_kernel :26)",
-                launches.get("bloom_probe", 0), 0.0, ms, plain_ms, n_bytes,
-                n_ops, "int32", None,
+                launches.get("bloom_probe", 0) +
+                launches.get("bloom_probe_mask", 0), 0.0, ms, plain_ms,
+                n_bytes, n_ops, "int32", None,
                 {"shape": f"filter=2^{BLOOM_S} bits k={BLOOM_K} Q={n_q}",
-                 "sectors_touched": sectors})
+                 "variant": "mask",
+                 "launches_by_variant": {
+                     "hits": launches.get("bloom_probe", 0),
+                     "mask": launches.get("bloom_probe_mask", 0)},
+                 "sectors_touched": sectors, "hits_ms": hits_ms,
+                 "hits_plain_ms": hits_plain_ms, "hits_bytes": hits_bytes,
+                 "hits_bound_ms": max(hits_bytes / HBM_BYTES_PER_S * 1e3,
+                                      n_ops / INT32_OPS_PER_S * 1e3),
+                 **op})
 
 
 def _causal_pairs(sq: int, skv: int) -> int:
@@ -887,6 +1076,25 @@ def kernel_k5(seed, launches) -> dict:
                             "(is_causal=True, enable_gqa=True)"})
 
 
+def only_stores(seed: int) -> dict:
+    """``--only stores``: K1's times and the bloom_probe op's at the
+    kvstore phase's shapes and data."""
+    import torch
+    from repro_torch.kernels.bloom_probe.ops import (DEFAULT_COEFFS,
+                                                     build_filter,
+                                                     filter_words)
+    data = kv_data(seed)
+    lg = data["log"]
+    order = np.argsort(data["keys"])
+    sk, sv = (torch.as_tensor(a[order], device=DEVICE)
+              for a in (data["keys"], data["values"]))
+    words = build_filter(lg["keys"], DEFAULT_COEFFS[:BLOOM_K], BLOOM_S)
+    return {"k1": k1_times(sk, sv, torch.as_tensor(data["queries"],
+                                                   device=DEVICE)),
+            "k4": k4_op_times(filter_words(words, DEVICE),
+                              torch.as_tensor(lg["queries"], device=DEVICE))}
+
+
 def _row(name, route, source, replaces, launches, max_abs_err, ms,
          plain_ms, n_bytes, n_ops, ops_peak, library_ms, extra) -> dict:
     """One line of the kernels table.  The bound is the larger of the
@@ -927,12 +1135,14 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
-    parser.add_argument("--only", choices=["whatif"], default=None,
-                        help="run this phase alone, without its one-K0-"
-                             "launch-per-sweep check, and print its report "
-                             "but no kernels line and no result line (to "
-                             "trace an older checkout's src/ with this "
-                             "script)")
+    parser.add_argument("--only", choices=["whatif", "stores"],
+                        default=None,
+                        help="whatif: run that phase alone, without the "
+                             "check of its launches; stores: time K1 and "
+                             "the bloom_probe op at the kvstore shapes.  "
+                             "Either prints its report but no kernels line "
+                             "and no result line (to time an older "
+                             "checkout's src/ with this script)")
     args = parser.parse_args(argv)
 
     import torch
@@ -952,14 +1162,22 @@ def main(argv=None) -> int:
     report = {"torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    build.build()
+    names = [n for n in build.SOURCES
+             if args.only != "stores" or n != "flash_attention"]
+    build.build(names)
     report["nvcc_build_s"] = time.perf_counter() - t0
-    for name in build.SOURCES:
+    for name in names:
         for line in build.build_log(name).read_text().splitlines():
             if ("registers" in line or "spill" in line or
                     "entry function" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
+    if args.only == "stores":
+        report["stores"] = only_stores(args.seed)
+        log("stores: " + json.dumps(report["stores"]))
+        _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
     t0 = time.perf_counter()
     report["whatif"] = phase_whatif(args.seed, one_launch=not args.only)
     report["whatif"]["phase_s"] = time.perf_counter() - t0

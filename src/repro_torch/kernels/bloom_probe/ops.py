@@ -33,20 +33,28 @@ def filter_words(words: Union[np.ndarray, torch.Tensor],
     return torch.as_tensor(arr, device=device)
 
 
-def bloom_hits(words: torch.Tensor, queries: torch.Tensor, s: int,
-               num_hashes: int = 2) -> torch.Tensor:
-    """hits [Q, k]: 1 where hash j's bit is set for query q."""
+def _probe(words, queries: torch.Tensor, s: int, num_hashes: int,
+           mask: bool) -> torch.Tensor:
     coeffs = DEFAULT_COEFFS[:num_hashes]
     words = filter_words(words)
     if queries.device.type == "cuda":
-        return kernel.bloom_probe_kernel(words, queries, coeffs, s)
+        return kernel.bloom_probe_kernel(words, queries, coeffs, s, mask=mask)
     if queries.device.type != "cpu":
         raise ValueError(f"bloom_probe runs on cpu or cuda, not "
                          f"{queries.device}")
+    if mask:
+        return ref.bloom_probe_ref(words, queries, coeffs, s)
     return ref.bloom_hits_ref(words, queries, coeffs, s)
+
+
+def bloom_hits(words: torch.Tensor, queries: torch.Tensor, s: int,
+               num_hashes: int = 2) -> torch.Tensor:
+    """hits [Q, k]: 1 where hash j's bit is set for query q."""
+    return _probe(words, queries, s, num_hashes, mask=False)
 
 
 def bloom_probe(words: torch.Tensor, queries: torch.Tensor, s: int,
                 num_hashes: int = 2) -> torch.Tensor:
-    """Membership mask for ``queries`` against a 2^s-bit bloom filter."""
-    return (bloom_hits(words, queries, s, num_hashes) == 1).all(dim=1)
+    """Membership mask for ``queries`` against a 2^s-bit bloom filter (on
+    a CUDA tensor, one launch of K4's mask variant)."""
+    return _probe(words, queries, s, num_hashes, mask=True)

@@ -16,6 +16,7 @@ from repro_torch.core.models import FittedModel
 from repro_torch.core.synthesis import Workload
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.bloom_probe import kernel as bp_kernel
+from repro_torch.kernels.bloom_probe import ops as bp_ops
 from repro_torch.kernels.bloom_probe import ref as bp_ref
 from repro_torch.kernels.bloom_probe.ops import DEFAULT_COEFFS
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -40,16 +41,17 @@ def cuda():
         yield dev
 
 
-@pytest.mark.parametrize("n,q", [(512, 256), (1000, 300), (64, 1000),
-                                 (1, 7), (1_000_003, 4099)])
-@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32])
-def test_sorted_search_kernel_matches_plain(cuda, n, q, dtype):
-    rng = np.random.default_rng(n + q)
-    keys = torch.as_tensor(np.sort(rng.integers(0, 1 << 20, n))
-                           .astype(dtype), device=cuda)
-    queries = torch.as_tensor(rng.integers(-5, (1 << 20) + 5, q)
-                              .astype(dtype), device=cuda)
-    values = torch.arange(n, device=cuda, dtype=torch.int64) * 3 + 1
+def _extreme_queries(dtype) -> np.ndarray:
+    """The dtype's extremes (and, for float32, the infinities and both
+    zeros)."""
+    info = np.finfo(dtype) if dtype == np.float32 else np.iinfo(dtype)
+    extremes = [info.min, info.max, 0, -1]
+    if dtype == np.float32:
+        extremes += [-np.inf, np.inf, -0.0, 0.0]
+    return np.asarray(extremes, dtype)
+
+
+def _assert_k1_matches_plain(keys, queries, values):
     before = launch_counts().get("sorted_search", 0)
     got = ss_kernel.sorted_search_kernel(keys, queries)
     torch.testing.assert_close(got, ss_ref.sorted_search_ref(keys, queries),
@@ -59,6 +61,55 @@ def test_sorted_search_kernel_matches_plain(cuda, n, q, dtype):
     torch.testing.assert_close(f1, f2, rtol=0, atol=0)
     torch.testing.assert_close(v1, v2, rtol=0, atol=0)
     assert launch_counts()["sorted_search"] == before + 2
+
+
+# (n, q, key range): N around K1's shared tree (2^15 keys of 4 bytes,
+# 2^14 of int64), tiny N, small key ranges (long runs of duplicates), and
+# 2^22 keys; 2^20 queries are more tiles than an H100 has SMs for every
+# dtype, so blocks of the persistent grid walk several tiles
+@pytest.mark.parametrize("n,q,hi", [
+    (512, 256, 1 << 20), (1000, 300, 1 << 20), (64, 1000, 1 << 20),
+    (1, 7, 1 << 20), (1_000_003, 4099, 1 << 20),
+    (2, 9, 4), (31, 70, 8), (32, 70, 8), (33, 70, 8),
+    (4095, 5000, 1 << 20), (4096, 5000, 1 << 20), (4097, 5000, 1 << 20),
+    (16383, 5000, 1 << 20), (16384, 5000, 1 << 20), (16385, 5000, 1 << 20),
+    (32767, 5000, 1 << 20), (32768, 5000, 1 << 20), (32769, 5000, 1 << 20),
+    (65_537, 3000, 300), (300_000, 5000, 40), (1 << 22, 1 << 18, 1 << 26),
+    (1 << 22, 1 << 20, 1 << 26)])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32])
+def test_sorted_search_kernel_matches_plain(cuda, n, q, hi, dtype):
+    rng = np.random.default_rng(n + q)
+    keys = torch.as_tensor(np.sort(rng.integers(0, hi, n)).astype(dtype),
+                           device=cuda)
+    queries = torch.as_tensor(np.concatenate([
+        rng.integers(-5, hi + 5, q).astype(dtype),
+        _extreme_queries(dtype)]), device=cuda)
+    values = torch.arange(n, device=cuda, dtype=torch.int64) * 3 + 1
+    _assert_k1_matches_plain(keys, queries, values)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32])
+def test_sorted_search_kernel_edge_keys(cuda, dtype):
+    """Keys in long runs ending at the dtype's maximum; for float32 the
+    infinities and both zeros as keys; keys off 16-byte alignment (the
+    scalar window)."""
+    info = np.finfo(dtype) if dtype == np.float32 else np.iinfo(dtype)
+    runs = [(-5, 3000), (0, 1), (7, 5000), (8, 4096), (info.max, 33)]
+    if dtype == np.float32:
+        runs = [(-np.inf, 2), (-0.0, 40), (0.0, 41)] + runs + [(np.inf, 3)]
+    keys_np = np.sort(np.concatenate([np.full(c, v, dtype)
+                                      for v, c in runs]), kind="stable")
+    queries = torch.as_tensor(np.concatenate([
+        np.asarray([-6, -5, 6, 7, 8, 9], dtype), _extreme_queries(dtype)]),
+        device=cuda)
+    for n in (len(keys_np), 33, 32, 31, 2, 1):
+        keys = torch.as_tensor(keys_np[-n:], device=cuda)
+        values = torch.arange(n, device=cuda, dtype=torch.int32)
+        _assert_k1_matches_plain(keys, queries, values)
+    buf = torch.as_tensor(keys_np, device=cuda)
+    assert buf[1:].data_ptr() % 16 != 0
+    _assert_k1_matches_plain(buf[1:], queries,
+                             torch.arange(len(keys_np) - 1, device=cuda))
 
 
 @pytest.mark.parametrize("s,cap,n,q", [(6, 32, 500, 301), (8, 16, 1000, 64),
@@ -225,6 +276,28 @@ def test_bloom_probe_kernel_matches_plain(cuda, s, k, q):
     want = bp_ref.bloom_hits_ref(w, qq, DEFAULT_COEFFS[:k], s)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert launch_counts()["bloom_probe"] == before + 1
+
+
+@pytest.mark.parametrize("s,k,q", [(13, 1, 1000), (16, 4, 4097),
+                                   (24, 3, 65536), (5, 2, 7)])
+def test_bloom_probe_op_is_one_mask_launch(cuda, s, k, q):
+    """ops.bloom_probe on the card: the AND of the plain hits, in one
+    launch of K4's mask variant and no other."""
+    rng = np.random.default_rng(s + k)
+    keys = rng.choice(1 << 24, 2000, replace=False)
+    words = bp_ref.build_filter(keys, DEFAULT_COEFFS[:k], s)
+    queries = np.concatenate([keys[: q // 2], rng.integers(
+        -2**31, 2**31, q - q // 2)]).astype(np.int32)[:q]
+    w = torch.as_tensor(words.view(np.int32), device=cuda)
+    qq = torch.as_tensor(queries, device=cuda)
+    before = launch_counts()
+    got = bp_ops.bloom_probe(w, qq, s=s, num_hashes=k)
+    after = launch_counts()
+    want = (bp_ref.bloom_hits_ref(w, qq, DEFAULT_COEFFS[:k], s) == 1).all(1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    moved = {n: after[n] - before.get(n, 0) for n in after
+             if after[n] != before.get(n, 0)}
+    assert moved == {"bloom_probe_mask": 1}, moved
 
 
 def _assert_one_launch(before, kind):
