@@ -36,8 +36,21 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   duplicates, the dtype's extremes, unaligned keys, 2^20 queries) with
   its bound in 32-byte sectors of the keys that fix each rank (the search
   path's sectors beside it), the Get's time and bound and the tree
-  depth; K4's hits and mask variants, and the bloom_probe op's device
-  time, host time per call and the kernels one call launched (traced).
+  depth, NaN queries among the float32 cases; K4's hits and mask
+  variants, and the bloom_probe op's device time, host time per call and
+  the kernels one call launched (traced).
+* ``search``: a profile trained at the full grid (the 14 Level-2
+  micro-benchmarks on the host, ``repro_torch.core.training.
+  train_profile``, every fit on the card) and held against the same fits
+  on the CPU (within 5e-3 of max |y|, the tolerance of
+  ``tests/test_torch_fit.py``), saved and reloaded; on ``hw3`` and on
+  that profile the reference's population-search configuration
+  (``benchmarks/popsearch_bench.py``: budget 256, population 16, seed
+  10) run twice — the same winner and cost, no new K0 specialisation —
+  beside beam search under the same budget; a search over the whatif
+  phase's 64 read-fraction points and a two-region hybrid; every winner
+  against the scalar oracle (1e-6 relative) and K0's launches counted;
+  the fitters' launches per Adam step and the surrogate's per call.
 
 Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
@@ -232,6 +245,270 @@ def phase_whatif(seed: int, one_launch: bool = True) -> dict:
     assert devicecost.device_table(knn_hw).has_knn
     out["best_designs"] = sorted({s.describe() for s, _ in
                                   (ans.best(i) for i in range(N_POINTS))})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# search: train the Level-2 cost models on the card, then search for designs
+# ---------------------------------------------------------------------------
+#: the reference's population-search configuration
+#: (benchmarks/popsearch_bench.py, not its smoke variant)
+SEARCH_BUDGET = 256
+SEARCH_KW = {"population": 16, "generations": 200, "refine_top": 2,
+             "refine_steps": 2, "seed": 10}
+BEAM_WIDTH, BEAM_ROUNDS = 8, 64
+#: fitted predictions, card against CPU, as a share of max |y|: the
+#: tolerance tests/test_torch_fit.py states and justifies
+FIT_ATOL = 5e-3
+ORACLE_RTOL = 1e-6
+#: the fitters' two families, by model kind
+FAMILIES = {"linear": "linear_basis", "log_linear": "linear_basis",
+            "log_loglog": "linear_basis", "nlogn": "linear_basis",
+            "sigmoids": "sigmoids"}
+
+
+def _per_step(fn_of_steps, short: int = 10, long: int = 50) -> dict:
+    """Launches and times per loop step of ``fn_of_steps(steps)`` on the
+    card: one call traced at ``short`` and one at ``long`` steps,
+    differenced, so what the two calls share (set-up, copies) cancels.
+    Also the short call's own launches (the set-up plus ``short``
+    steps)."""
+    a = _profile(lambda: fn_of_steps(short), 1)
+    b = _profile(lambda: fn_of_steps(long), 1)
+    span = long - short
+    out = {k: (b[k] - a[k]) / span for k in (
+        "launches_per_step", "device_events_per_step",
+        "device_ms_per_step", "wall_ms_per_step")}
+    out["setup_launches"] = a["launches_per_step"] - \
+        short * out["launches_per_step"]
+    return out
+
+
+def fit_step_profiles() -> dict:
+    """Each fitter's launches and time per Adam step on the card (the
+    reference's ``_fit_nnls`` and ``_fit_sigmoids_gd`` scans), and per
+    whole fit at the reference's step counts (2,000 and 4,000)."""
+    import torch
+    from repro_torch.core import models
+    x = torch.logspace(2, 8, 40, device=DEVICE)
+    y = 2e-9 * x + 4e-8 * torch.log(x + 1.0) + 1e-7
+    logx = torch.log(x + 1.0)
+    init = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+            models._sigmoid_init(logx.cpu().numpy(), y.cpu().numpy(),
+                                 3).items()}
+    out = {"nnls": _per_step(
+        lambda n: models._fit_nnls(x, y, "log_loglog", steps=n)),
+        "sigmoids": _per_step(
+        lambda n: models._fit_sigmoids_gd(logx, y, init, steps=n))}
+    for name, steps in (("nnls", 2000), ("sigmoids", 4000)):
+        per = out[name]
+        per["steps_per_fit"] = steps
+        per["launches_per_fit"] = per["setup_launches"] + \
+            steps * per["launches_per_step"]
+    return out
+
+
+def surrogate_profiles(hw) -> dict:
+    """The relaxed surrogate's value and gradient (the reference's jitted
+    ``_surrogate_fn``), one call per template: launches, device and host
+    time per call on the card."""
+    import torch
+    from repro_torch.core import devicecost, relax, search
+    table = devicecost.device_table(hw)
+    args = [torch.tensor(v, dtype=torch.float32, device=DEVICE)
+            for v in (1e6, 0.8, 8.0)]
+    out = {}
+    for template in (search.DEFAULT_TEMPLATES[0],
+                     search.DEFAULT_TEMPLATES[6]):
+        fn = relax._surrogate_fn(template)
+        lo, hi = template.knob_bounds()
+        theta = torch.tensor(0.5 * (lo + hi), dtype=torch.float32,
+                             device=DEVICE)
+        fn(theta, table.banks, *args)
+        prof = _profile(lambda: fn(theta, table.banks, *args), 20)
+        out[template.describe()] = {
+            "launches_per_call": prof["launches_per_step"],
+            "device_events_per_call": prof["device_events_per_step"],
+            "device_ms_per_call": prof["device_ms_per_step"],
+            "wall_ms_per_call": prof["wall_ms_per_step"]}
+    return out
+
+
+def _oracle_rel(cost: float, oracle: float) -> float:
+    return abs(cost - oracle) / abs(oracle)
+
+
+def _starts():
+    from repro_torch.core import elements as el
+    return [el.spec_btree(), el.spec_trie(), el.spec_csb_tree()]
+
+
+def popsearch(label: str, hw, workload, mix) -> dict:
+    """The reference's population-search benchmark on one profile: beam
+    search under the same designs budget, then the population search
+    twice (a warm-up, then the measured run: the same winner and cost,
+    no new K0 specialisation), the winner against the scalar oracle."""
+    from repro_torch.core import autocomplete, devicecost, search
+    from repro_torch.core.synthesis import cost_workload
+    from repro_torch.kernels import launch_counts
+    beam_budget = search.SearchBudget(SEARCH_BUDGET)
+    t0 = time.perf_counter()
+    beam = autocomplete.design_beam(workload, hw, mix, start=_starts(),
+                                    beam_width=BEAM_WIDTH,
+                                    max_rounds=BEAM_ROUNDS,
+                                    budget=beam_budget)
+    beam_s = time.perf_counter() - t0
+
+    def run():
+        return search.population_search(
+            workload, hw, mix, budget=search.SearchBudget(SEARCH_BUDGET),
+            seeds=_starts(), **SEARCH_KW)
+
+    t0 = time.perf_counter()
+    warm = run()
+    warm_s = time.perf_counter() - t0
+    specs_before = devicecost.specialisation_count()
+    k0_before = launch_counts().get("bank_score", 0)
+    t0 = time.perf_counter()
+    pop = run()
+    pop_s = time.perf_counter() - t0
+    k0 = launch_counts().get("bank_score", 0) - k0_before
+    new_specs = devicecost.specialisation_count() - specs_before
+    oracle = cost_workload(pop["design"], workload, hw, mix)
+    rel = _oracle_rel(pop["cost_s"], oracle)
+    assert pop["design"].chain == warm["design"].chain and \
+        pop["cost_s"] == warm["cost_s"], f"{label}: search not deterministic"
+    assert new_specs == 0, f"{label}: {new_specs} new K0 specialisations"
+    assert rel <= ORACLE_RTOL, f"{label}: winner vs oracle {rel:.3e}"
+    assert pop["oracle_cost_s"] is not None
+    assert pop["designs_costed"] <= SEARCH_BUDGET
+    assert beam_budget.spent <= SEARCH_BUDGET
+    assert k0 >= 1, f"{label}: the search launched no K0"
+    return {"design": pop["design"].describe(), "template": pop["template"],
+            "cost_s": pop["cost_s"], "oracle_cost_s": oracle,
+            "oracle_rel_err": rel, "designs_costed": pop["designs_costed"],
+            "generations": pop["generations"], "search_s": pop_s,
+            "warmup_s": warm_s, "refine_s": pop["refine_s"],
+            "designs_per_s": pop["designs_costed"] / pop_s,
+            "k0_launches": k0, "new_k0_specialisations": new_specs,
+            "beam_design": beam["design"], "beam_cost_s": beam["cost_s"],
+            "beam_designs_costed": beam["designs_costed"],
+            "beam_rounds": beam["rounds"], "beam_s": beam_s,
+            "beam_designs_per_s": beam["designs_costed"] / beam_s,
+            "pop_over_beam_cost": pop["cost_s"] / beam["cost_s"]}
+
+
+def phase_search(seed: int) -> dict:
+    """Train a profile at the full grid (measurements on the host, fits
+    on the card), hold the fits against the same fits on the CPU, save
+    and reload it, then run the reference's population-search
+    configuration on hw3 and on that profile, a 64-point search and a
+    two-region hybrid, every winner against the scalar oracle."""
+    import dataclasses
+    from repro_torch.core import (access, autocomplete, hardware, models,
+                                  search, training, whatif)
+    from repro_torch.core.hardware import HardwareProfile
+    from repro_torch.core.synthesis import Workload, cost_workload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    out = {}
+    reset_launch_counts()
+    t_path = time.perf_counter()
+    measured = {}
+    trained = training.train_profile("HW-card-host", measurements=measured)
+    c = trained.constants
+    out["training_s"] = c["training_seconds"]
+    out["measure_s"] = c["training_seconds"] - c["fitting_seconds"]
+    out["fit_s"] = c["fitting_seconds"]
+    fit_s = {}
+    for pname, prim in access.LEVEL2.items():
+        family = FAMILIES[prim.model_kind]
+        fit_s[family] = fit_s.get(family, 0.0) + c[f"fit_seconds_{pname}"]
+    out["fit_s_by_family"] = fit_s
+    out["r2"] = {p: c[f"r2_{p}"] for p in access.LEVEL2}
+    out["grid_sizes"] = {p: len(x) for p, (x, _) in measured.items()}
+    assert all(np.isfinite(v) for v in out["r2"].values())
+
+    # the same (x, y) fitted on the CPU: the card's fit within FIT_ATOL
+    t0 = time.perf_counter()
+    worst = {}
+    for pname, (x, y) in measured.items():
+        on_cpu = models.fit(access.LEVEL2[pname].model_kind, x, y,
+                            device="cpu")
+        on_card = trained.models[pname]
+        assert on_card.kind == on_cpu.kind
+        assert on_card.x_range == on_cpu.x_range
+        scale = float(np.max(np.abs(y.astype(np.float32))))
+        worst[pname] = float(np.max(np.abs(
+            on_card.predict(x, "cpu") - on_cpu.predict(x, "cpu")))) / scale
+    out["cpu_refit_s"] = time.perf_counter() - t0
+    out["card_vs_cpu_fit"] = worst
+    out["card_vs_cpu_fit_max"] = max(worst.values())
+    assert out["card_vs_cpu_fit_max"] <= FIT_ATOL, \
+        f"card vs CPU fits: {worst}"
+
+    path = os.path.join(ROOT, "build", "profiles", "card_host.json")
+    trained.save(path)
+    profile = HardwareProfile.load(path)
+    for pname, (x, _) in measured.items():
+        np.testing.assert_allclose(profile.models[pname].predict(x),
+                                   trained.models[pname].predict(x),
+                                   rtol=1e-6)
+
+    workload = Workload(n_entries=1_000_000, n_queries=100)
+    mix = {"get": 80.0, "update": 20.0}
+    hw3 = hardware.hw3()
+    out["popsearch_hw3"] = popsearch("hw3", hw3, workload, mix)
+    out["popsearch_trained"] = popsearch("trained", profile, workload, mix)
+
+    # a 64-point read-fraction axis: each generation's fresh designs at
+    # every point in one K0 launch
+    workloads = [workload] * N_POINTS
+    mixes = whatif.read_fraction_mixes(np.linspace(0.0, 1.0, N_POINTS))
+    k0_before = launch_counts().get("bank_score", 0)
+    t0 = time.perf_counter()
+    multi = search.population_search(
+        workload, hw3, budget=search.SearchBudget(SEARCH_BUDGET),
+        workloads=workloads, mixes=mixes, seeds=_starts(), **SEARCH_KW)
+    multi_s = time.perf_counter() - t0
+    k0 = launch_counts().get("bank_score", 0) - k0_before
+    oracle = float(np.mean([cost_workload(multi["design"], w, hw3, m)
+                            for w, m in zip(workloads, mixes)]))
+    rel = _oracle_rel(multi["cost_s"], oracle)
+    assert rel <= ORACLE_RTOL, f"64-point winner vs oracle {rel:.3e}"
+    assert 1 <= k0 <= multi["generations"], \
+        f"{k0} K0 launches for {multi['generations']} generations"
+    out["multipoint"] = {
+        "points": N_POINTS, "design": multi["design"].describe(),
+        "cost_s": multi["cost_s"], "oracle_rel_err": rel,
+        "designs_costed": multi["designs_costed"],
+        "generations": multi["generations"], "k0_launches": k0,
+        "search_s": multi_s, "refine_s": multi["refine_s"],
+        "designs_per_s": multi["designs_costed"] / multi_s}
+
+    regions = [autocomplete.DomainRegion("reads", 0.2, {"get": 100.0}),
+               autocomplete.DomainRegion("writes", 0.8,
+                                         {"bulk_load": 1.0,
+                                          "update": 100.0})]
+    hybrid = autocomplete.design_hybrid(workload, regions, hw3)
+    hybrid_rel = {}
+    for region, result in hybrid.regions:
+        sub = dataclasses.replace(workload, n_entries=max(
+            int(workload.n_entries * region.fraction), 1))
+        hybrid_rel[region.name] = _oracle_rel(
+            result.cost_seconds,
+            cost_workload(result.spec, sub, hw3, region.mix))
+    assert max(hybrid_rel.values()) <= ORACLE_RTOL, hybrid_rel
+    out["hybrid"] = {"design": hybrid.describe(),
+                     "cost_s": hybrid.cost_seconds,
+                     "elapsed_s": hybrid.elapsed_seconds,
+                     "oracle_rel_err": hybrid_rel}
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = launch_counts()
+    assert out["launches"].get("bank_score", 0) > 0, "K0 never launched"
+
+    # the fitters and the surrogate on the card, per step and per call
+    out["fit_steps"] = fit_step_profiles()
+    out["surrogate"] = surrogate_profiles(hw3)
     return out
 
 
@@ -642,14 +919,15 @@ def _k1_cases(rng, tree_depth):
     """(keys, values, queries) numpy triples at K1's edges: N below, at
     and above 2^tree_depth(dtype) (its shared tree's size), N = 1, 2, 31,
     32, 33, long runs of duplicates, queries below the minimum, above the
-    maximum and equal to the dtype's maximum; for float32 the infinities
-    and both zeros."""
+    maximum and equal to the dtype's maximum; for float32 the infinities,
+    both zeros and NaN queries."""
     cases = []
     for dtype in (np.int32, np.int64, np.float32):
         info = np.finfo(dtype) if dtype == np.float32 else np.iinfo(dtype)
         extremes = [info.min, info.max, -1, 0]
         if dtype == np.float32:
-            extremes += [-np.inf, np.inf, -0.0, 0.0]
+            # NaN ranks 0: it compares false with every key
+            extremes += [-np.inf, np.inf, -0.0, 0.0, np.nan, -np.nan]
         extremes = np.asarray(extremes, dtype)
         top = tree_depth(dtype)
         # (n, key range, random queries): 2^20 queries are more tiles of
@@ -718,7 +996,10 @@ def kernel_k1(data, rng, launches) -> dict:
         return kernel.top_levels(1 << 30, torch.from_numpy(
             np.zeros(1, dtype)).dtype)
 
+    nan_queries = 0
     for k, v, qq in _k1_cases(rng, tree_depth):
+        if qq.dtype == np.float32:
+            nan_queries += 2 * int(np.isnan(qq).sum())
         k, v, qq = (torch.as_tensor(a, device=DEVICE) for a in (k, v, qq))
         mismatches += _k1_mismatches(kernel, ref, k, v, qq)
         # the same keys off 16-byte alignment: the scalar window
@@ -761,6 +1042,7 @@ def kernel_k1(data, rng, launches) -> dict:
                 times["plain_ms"], n_bytes, n_ops, "int32",
                 times["library_ms"],
                 {"shape": f"N={len(keys)} Q={n_q}", "cases": n_cases,
+                 "nan_queries_checked": nan_queries,
                  "top_levels": kernel.top_levels(len(keys)),
                  "bracket_key_sectors": sectors,
                  "search_path_keys": int(len(touched)),
@@ -1219,6 +1501,23 @@ def main(argv=None) -> int:
         kernel_k5(args.seed, report["lm"]["launches"]),
     ]
     report["kernels_phase_s"] = time.perf_counter() - t0
+
+    # the search phase runs after the kernels phase: it traces many
+    # short loops, and a trace late in a long process can miss K4's one
+    # 3 µs kernel, which the kernels phase's trace looks for
+    t0 = time.perf_counter()
+    report["search"] = phase_search(args.seed)
+    report["search"]["phase_s"] = time.perf_counter() - t0
+    sr = report["search"]
+    log(f"search training: {sr['training_s']:.2f} s ({sr['measure_s']:.2f} "
+        f"s measuring on the host, {sr['fit_s']:.2f} s fitting on the card)")
+    for label in ("popsearch_hw3", "popsearch_trained"):
+        ps = sr[label]
+        log(f"search {label}: {ps['design']} {ps['cost_s']:.6e} s, "
+            f"{ps['designs_costed']} designs in {ps['search_s']:.3f} s "
+            f"({ps['designs_per_s']:.0f}/s), {ps['k0_launches']} K0 "
+            f"launches; beam {ps['beam_cost_s']:.6e} s")
+    log("search: " + json.dumps(sr))
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

@@ -285,6 +285,27 @@ def invalidate_table(hw: HardwareProfile) -> None:
 # ---------------------------------------------------------------------------
 # Plain version of K0: per-record evaluation + segment reduction
 # ---------------------------------------------------------------------------
+class _Sigmoid(torch.autograd.Function):
+    """``_sigmoid`` with the logistic's own derivative, ``s (1 - s)``.
+
+    The chain rule through ``1 / (1 + exp(-z))`` divides inf by inf where
+    ``exp(-z)`` overflows (a steep fitted step far below its centre), so
+    the gradient would be NaN where the sigmoid is flat; the reference's
+    ``jax.nn.sigmoid`` differentiates as ``s (1 - s)``, and so does this.
+    The value is ``_sigmoid``'s, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, z):
+        s = _sigmoid(z)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def bank_predict(banks: Dict[str, torch.Tensor], ids: torch.Tensor,
                  x: torch.Tensor, with_knn: bool) -> torch.Tensor:
     """Per-record model evaluation against stacked parameter banks.
@@ -311,7 +332,8 @@ def bank_predict(banks: Dict[str, torch.Tensor], ids: torch.Tensor,
     sig_c = banks["sig_c"][ids]
     sig = banks["sig_y0"][ids]
     for j in range(sig_c.shape[1]):
-        sig = sig + _sigmoid(sig_k[:, j] * (lx - sig_x0[:, j])) * sig_c[:, j]
+        sig = sig + _Sigmoid.apply(sig_k[:, j] * (lx - sig_x0[:, j])) \
+            * sig_c[:, j]
 
     kind = banks["kinds"][ids]
     y = torch.where(kind == KIND_SIGMOID, sig, lin)

@@ -8,8 +8,16 @@ import torch
 
 def sorted_search_ref(keys: torch.Tensor,
                       queries: torch.Tensor) -> torch.Tensor:
-    """rank[q] = #{i : keys[i] <= q}  (searchsorted side='right'), int32."""
-    return torch.searchsorted(keys, queries, right=True).to(torch.int32)
+    """rank[q] = #{i : keys[i] <= q}  (searchsorted side='right'), int32.
+
+    A NaN query compares false with every key, so its rank is 0, as K1
+    and the reference op count it; ``torch.searchsorted`` alone would
+    sort NaN last and answer N."""
+    rank = torch.searchsorted(keys, queries, right=True).to(torch.int32)
+    if queries.is_floating_point():
+        rank = torch.where(torch.isnan(queries), torch.zeros_like(rank),
+                           rank)
+    return rank
 
 
 def sorted_get_ref(keys: torch.Tensor, values: torch.Tensor,

@@ -91,17 +91,20 @@ def test_sorted_search_kernel_matches_plain(cuda, n, q, hi, dtype):
 @pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32])
 def test_sorted_search_kernel_edge_keys(cuda, dtype):
     """Keys in long runs ending at the dtype's maximum; for float32 the
-    infinities and both zeros as keys; keys off 16-byte alignment (the
+    infinities and both zeros as keys, and NaN queries (rank 0: a NaN
+    compares false with every key); keys off 16-byte alignment (the
     scalar window)."""
     info = np.finfo(dtype) if dtype == np.float32 else np.iinfo(dtype)
     runs = [(-5, 3000), (0, 1), (7, 5000), (8, 4096), (info.max, 33)]
+    nans = np.zeros(0, dtype)
     if dtype == np.float32:
         runs = [(-np.inf, 2), (-0.0, 40), (0.0, 41)] + runs + [(np.inf, 3)]
+        nans = np.asarray([np.nan, -np.nan, np.nan], dtype)
     keys_np = np.sort(np.concatenate([np.full(c, v, dtype)
                                       for v, c in runs]), kind="stable")
     queries = torch.as_tensor(np.concatenate([
-        np.asarray([-6, -5, 6, 7, 8, 9], dtype), _extreme_queries(dtype)]),
-        device=cuda)
+        np.asarray([-6, -5, 6, 7, 8, 9], dtype), nans,
+        _extreme_queries(dtype)]), device=cuda)
     for n in (len(keys_np), 33, 32, 31, 2, 1):
         keys = torch.as_tensor(keys_np[-n:], device=cuda)
         values = torch.arange(n, device=cuda, dtype=torch.int32)
@@ -380,3 +383,57 @@ def test_flash_attention_wgmma_rejects_unaligned(cuda):
         with pytest.raises(ValueError, match="TMA"):
             fa_kernel.flash_attention_kernel(q, k, k, True)
         assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The search slice on the card: fits and a population search
+# ---------------------------------------------------------------------------
+#: fitted predictions, CUDA against CPU, as a share of max |y|: the
+#: tolerance tests/test_torch_fit.py states and justifies for two
+#: float32 Adam loops that round differently
+FIT_ATOL = 5e-3
+
+
+@pytest.mark.parametrize("kind", ["linear", "log_linear", "log_loglog",
+                                  "nlogn", "sigmoids"])
+def test_fit_on_cuda_matches_cpu(cuda, kind):
+    from repro_torch.core import models
+    rng = np.random.default_rng(17)
+    x = np.logspace(2, 8, 40)
+    lx = np.log(x + 1.0)
+    if kind == "sigmoids":
+        y = 1e-9 + 3e-8 / (1 + np.exp(-6.0 * (lx - 9.0)))
+    else:
+        y = 2e-9 * x + 4e-8 * lx + 1e-7
+    y = y * (1 + 0.02 * rng.standard_normal(len(x)))
+    on_card = models.fit(kind, x, y, device=cuda)
+    on_cpu = models.fit(kind, x, y, device="cpu")
+    assert on_card.kind == on_cpu.kind and on_card.x_range == on_cpu.x_range
+    for v in on_card.params.values():
+        assert isinstance(v, np.ndarray) and v.dtype == np.float32
+    got, want = on_card.predict(x, "cpu"), on_cpu.predict(x, "cpu")
+    assert np.max(np.abs(got - want)) <= FIT_ATOL * np.max(np.abs(y))
+
+
+def test_population_search_on_cuda_matches_cpu(cuda):
+    """The same seed and budget choose the CPU run's design on the card,
+    every generation scored by K0."""
+    from repro_torch.core import search
+    wl = Workload(n_entries=1_000_000, n_queries=100)
+    mix = {"get": 80.0, "update": 20.0}
+    kw = dict(population=16, generations=200, refine_top=2, refine_steps=2,
+              seed=10, seeds=[el.spec_btree(), el.spec_trie(),
+                              el.spec_csb_tree()])
+    reset_launch_counts()
+    got = search.population_search(wl, hardware.hw3(), mix,
+                                   budget=search.SearchBudget(256), **kw)
+    k0 = launch_counts().get("bank_score", 0)
+    with runtime.use_device("cpu"):
+        want = search.population_search(wl, hardware.hw3(), mix,
+                                        budget=search.SearchBudget(256),
+                                        **kw)
+    assert got["design"].describe() == want["design"].describe()
+    assert got["designs_costed"] == want["designs_costed"] <= 256
+    assert got["generations"] == want["generations"]
+    assert abs(got["cost_s"] - want["cost_s"]) <= 1e-6 * want["cost_s"]
+    assert k0 >= 1
