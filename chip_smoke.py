@@ -51,6 +51,22 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   phase's 64 read-fraction points and a two-region hybrid; every winner
   against the scalar oracle (1e-6 relative) and K0's launches counted;
   the fitters' launches per Adam step and the surrogate's per call.
+* ``serving`` (after the kernels phase): ``repro_torch.serving.
+  DesignCalculatorService`` at ``benchmarks/serving_bench.py``'s full
+  size — 96 mixed what-if questions (design, hardware, workload; an
+  auto-completion at ``max_depth=2`` every 8th) on ``hw1``-``hw3`` over
+  ``Workload(1_000_000, 100)``, its ``zipf_alpha=1.5`` and 4x-grown
+  variants, ``window_s=0.25``, ``max_batch=96``: the serial one-call loop
+  against the same questions submitted together (every answer within
+  1e-6 of the serial one and of the scalar oracle, from the fused
+  engine), a hardware-swap burst against a freshly registered profile
+  (no new K0 specialisation), questions/s, p50/p99 latency, K0 launches
+  a window and a trace of one window; the whatif phase's sweep through
+  ``submit_sweep`` on one slot (one K0 launch) and on two slots of
+  ``cuda:0`` (two launches), both bit for bit the direct sweep; the
+  popsearch configuration through ``submit_search`` (the direct run's
+  winner and cost); a corrupt fused total healed inside the pool and
+  corrupt banks served by the grouped oracle until the recovery probe.
 
 Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
@@ -509,6 +525,378 @@ def phase_search(seed: int) -> dict:
     # the fitters and the surrogate on the card, per step and per call
     out["fit_steps"] = fit_step_profiles()
     out["surrogate"] = surrogate_profiles(hw3)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serving: design questions answered concurrently by the service
+# ---------------------------------------------------------------------------
+#: benchmarks/serving_bench.py at full size: 96 mixed questions, an
+#: auto-completion (max_depth 2) every 8th, one window of 0.25 s
+SERVE_QUESTIONS = 96
+SERVE_DEPTH = 2
+SERVE_WINDOW_S = 0.25
+SERVE_REPS = 5
+#: the reference's serving bar (coalesced over serial questions/s); the
+#: phase records its ratio and does not gate on it
+SERVE_TARGET = 3.0
+
+
+def _mixed_questions(workload, skewed, grown, h1, h2, h3):
+    """serving_bench's deterministic question list: (kind, args...)."""
+    from repro_torch.core import elements as el, whatif
+    specs = [el.spec_btree(), el.spec_hash_table(), el.spec_skip_list(),
+             el.spec_btree(fanout=40), el.spec_trie()]
+    variants = [whatif.add_bloom_filters(el.spec_hash_table()),
+                el.spec_csb_tree(), el.spec_btree(page=512)]
+    qs = []
+    i = 0
+    while len(qs) < SERVE_QUESTIONS:
+        spec = specs[i % len(specs)]
+        kind = (i % 8) % 3 if i % 8 != 7 else 3
+        if kind == 0:
+            qs.append(("design", spec, variants[i % len(variants)],
+                       workload, h1))
+        elif kind == 1:
+            qs.append(("hardware", spec, workload, h1, (h2, h3)[i % 2]))
+        elif kind == 2:
+            qs.append(("workload", spec, workload,
+                       (skewed, grown)[i % 2], (h1, h2)[i % 2]))
+        else:
+            qs.append(("complete", (spec.chain[0],), workload,
+                       (h1, h3)[i % 2], SERVE_DEPTH))
+        i += 1
+    return qs
+
+
+def _ask_serial(q, engine: str = "fused"):
+    from repro_torch.core import autocomplete, whatif
+    if q[0] == "complete":
+        return autocomplete.complete_design(q[1], q[2], q[3],
+                                            max_depth=q[4])
+    fn = {"design": whatif.what_if_design,
+          "hardware": whatif.what_if_hardware,
+          "workload": whatif.what_if_workload}[q[0]]
+    return fn(*q[1:], engine=engine)
+
+
+def _submit(svc, q):
+    if q[0] == "complete":
+        return svc.submit_complete(q[1], q[2], q[3], max_depth=q[4])
+    return getattr(svc, f"submit_{q[0]}")(*q[1:])
+
+
+def _ask_coalesced(svc, questions, latencies=None):
+    """The questions submitted together; each one's seconds from submit
+    to answer go into ``latencies``."""
+    t0 = time.perf_counter()
+    futures = [_submit(svc, q) for q in questions]
+    if latencies is not None:
+        for f in futures:
+            f.add_done_callback(
+                lambda _f: latencies.append(time.perf_counter() - t0))
+    return [f.result(timeout=300) for f in futures]
+
+
+def _check_answers(questions, got, serial, oracles) -> float:
+    """Coalesced answers against the serial ones and the scalar oracle
+    (1e-6 relative, same verdict); auto-completions against the serial
+    completion (equal cost, equal designs explored).  Every answer came
+    from the fused engine."""
+    worst = 0.0
+    for q, g, s, o in zip(questions, got, serial, oracles):
+        assert g.engine == "fused", f"{q[0]} answered by {g.engine}"
+        if q[0] == "complete":
+            assert g.cost_seconds == s.cost_seconds, (q, g, s)
+            assert g.explored == s.explored, (q, g, s)
+            continue
+        for attr in ("baseline_seconds", "variant_seconds"):
+            c, r, want = (getattr(x, attr) for x in (g, s, o))
+            for have in (c, r):
+                worst = max(worst, _oracle_rel(have, want))
+        assert g.beneficial == s.beneficial == o.beneficial, q
+    assert worst <= ORACLE_RTOL, f"served vs oracle: {worst:.3e}"
+    return worst
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values), q))
+
+
+def phase_serving(seed: int) -> dict:
+    """serving_bench's mixed burst through the service (serial loop
+    against one coalesced window, parity, the hardware-swap burst, a
+    trace of one window), the whatif phase's design-continuum question
+    through ``submit_sweep`` on one slot and on two slots of one card,
+    the popsearch configuration through ``submit_search``, and the
+    pool's healing of a corrupt fused total and of corrupt banks."""
+    import dataclasses
+    from repro_torch.core import devicecost, hardware
+    from repro_torch.core.synthesis import Workload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import DesignCalculatorService
+    del seed   # the questions are fixed; the profiles are analytical
+    out = {}
+    reset_launch_counts()
+    t_path = time.perf_counter()
+    workload = Workload(n_entries=1_000_000, n_queries=100)
+    skewed = dataclasses.replace(workload, zipf_alpha=1.5)
+    grown = dataclasses.replace(workload,
+                                n_entries=workload.n_entries * 4)
+    h1, h2, h3 = hardware.hw1(), hardware.hw2(), hardware.hw3()
+    questions = _mixed_questions(workload, skewed, grown, h1, h2, h3)
+    serial = [_ask_serial(q) for q in questions]        # warm the caches
+    oracles = [None if q[0] == "complete" else _ask_serial(q, "scalar")
+               for q in questions]
+    asked = 0
+    svc = DesignCalculatorService([h1, h2, h3], window_s=SERVE_WINDOW_S,
+                                  max_batch=SERVE_QUESTIONS)
+    try:
+        got = _ask_coalesced(svc, questions)
+        asked += len(questions)
+        out["max_rel_vs_oracle"] = _check_answers(questions, got, serial,
+                                                  oracles)
+        # a hardware-swap burst, then the same against a profile
+        # registered afterwards: its banks are new, K0's widths are not
+        specs = sorted({q[1] for q in questions if q[0] == "hardware"},
+                       key=lambda sp: sp.describe())
+        burst = [("hardware", specs[i % len(specs)], workload, h1, h3)
+                 for i in range(SERVE_QUESTIONS)]
+        _ask_coalesced(svc, burst)
+        hw_new = hardware.analytical_profile(
+            "HW-new", mem_ns=60.0, bw_bytes_per_s=80e9, l3_bytes=64 << 20)
+        svc.register_hardware(hw_new)
+        before = devicecost.specialisation_count()
+        swapped = _ask_coalesced(svc, [(k, sp, wl, base, hw_new)
+                                       for k, sp, wl, base, _ in burst])
+        asked += 2 * SERVE_QUESTIONS
+        out["hw_swap_new_specialisations"] = \
+            devicecost.specialisation_count() - before
+        assert out["hw_swap_new_specialisations"] == 0, \
+            "the hardware-swap burst added K0 specialisations"
+        assert all(a.engine == "fused" for a in swapped)
+
+        serial_s, coalesced_s = [], []
+        serial_lat, coalesced_lat = [], []
+        for _ in range(SERVE_REPS):
+            t0 = time.perf_counter()
+            for q in questions:
+                t1 = time.perf_counter()
+                _ask_serial(q)
+                serial_lat.append(time.perf_counter() - t1)
+            serial_s.append(time.perf_counter() - t0)
+            stats0 = svc.stats()
+            k0_0 = launch_counts().get("bank_score", 0)
+            t0 = time.perf_counter()
+            _check_answers(questions, _ask_coalesced(svc, questions,
+                                                     coalesced_lat),
+                           serial, oracles)
+            coalesced_s.append(time.perf_counter() - t0)
+            asked += len(questions)
+            stats1 = svc.stats()
+        windows = stats1["batches"] - stats0["batches"]
+        out["k0_launches_per_window"] = \
+            (launch_counts().get("bank_score", 0) - k0_0) / max(windows, 1)
+        out["score_calls_per_window"] = \
+            (stats1["score_calls"] - stats0["score_calls"]) / max(windows, 1)
+        out["windows_per_burst"] = windows
+        out["serial_s"], out["coalesced_s"] = serial_s, coalesced_s
+        out["serial_qps"] = SERVE_QUESTIONS / min(serial_s)
+        out["coalesced_qps"] = SERVE_QUESTIONS / min(coalesced_s)
+        out["coalesced_over_serial"] = \
+            out["coalesced_qps"] / out["serial_qps"]
+        out["reference_bar"] = SERVE_TARGET
+        out["serial_latency_p50_ms"] = _pct(serial_lat, 50) * 1e3
+        out["serial_latency_p99_ms"] = _pct(serial_lat, 99) * 1e3
+        out["coalesced_latency_p50_ms"] = _pct(coalesced_lat, 50) * 1e3
+        out["coalesced_latency_p99_ms"] = _pct(coalesced_lat, 99) * 1e3
+        # one coalesced window, traced: K0's launches and device time,
+        # the card's busy share of the window
+        out["profile_window"] = _profile(
+            lambda: _ask_coalesced(svc, questions), 1, watch="bank_score")
+        asked += len(questions)
+        stats = svc.stats()
+    finally:
+        svc.stop()
+    out["stats"] = {k: stats[k] for k in (
+        "questions", "answered", "failed", "batches", "score_calls",
+        "fallback_flat", "fallback_grouped", "shard_retries",
+        "shard_nonfinite")}
+    assert stats["answered"] == asked == stats["questions"], stats
+    assert stats["failed"] == 0, stats
+    assert stats["fallback_flat"] == stats["fallback_grouped"] == 0, stats
+
+    out["sweep"] = _serving_sweep()
+    out["search"] = _serving_search(workload, h3)
+    out["healing"] = _serving_healing(workload, h1)
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = launch_counts()
+    assert out["launches"].get("bank_score", 0) > 0, "K0 never launched"
+    return out
+
+
+def _serving_sweep() -> dict:
+    """The whatif phase's question through ``submit_sweep``: on a pool
+    of one slot (one K0 launch) and on two slots of ``cuda:0`` forced to
+    split (two launches, each on its slot's stream), both grids bit for
+    bit the direct ``whatif.workload_sweep``'s."""
+    from repro_torch.core import (autocomplete, batchcost, devicecost,
+                                  hardware, whatif)
+    from repro_torch.core.synthesis import Workload
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import DesignCalculatorService
+    frontier = autocomplete.enumerate_frontier((), max_depth=DEPTH)
+    workloads = [Workload(n_entries=1_000_000, n_queries=100)] * N_POINTS
+    mixes = whatif.read_fraction_mixes(np.linspace(0.0, 1.0, N_POINTS))
+    hw3 = hardware.hw3()
+    direct = whatif.workload_sweep(frontier, workloads, hw3, mixes).totals
+    out = {"designs": len(frontier), "points": N_POINTS,
+           "cells": N_POINTS * len(batchcost.pack_sweep(
+               frontier, workloads, mixes).frontiers[0].ids)}
+    for label, devices in (("one_slot", None),
+                           ("two_slots", [DEVICE + ":0"] * 2)):
+        svc = DesignCalculatorService([hw3], window_s=0.002,
+                                      scoring_devices=devices,
+                                      shard_min_cells=1)
+        try:
+            grids, secs, launches = [], [], []
+            for _ in range(3):      # the first lays out the parts
+                k0 = launch_counts().get("bank_score", 0)
+                t0 = time.perf_counter()
+                ans = svc.workload_sweep(frontier, workloads, hw3, mixes)
+                secs.append(time.perf_counter() - t0)
+                launches.append(launch_counts().get("bank_score", 0) - k0)
+                assert ans.engine == "fused", ans.engine
+                grids.append(ans.totals)
+            stats = svc.stats()
+        finally:
+            svc.stop()
+        want = 1 if devices is None else 2
+        assert launches == [want] * 3, f"{label}: K0 launches {launches}"
+        for g in grids:
+            assert np.array_equal(g, direct), f"{label}: grid differs"
+        assert stats["fallback_flat"] == stats["fallback_grouped"] == 0
+        out[label] = {"slots": 1 if devices is None else len(devices),
+                      "k0_launches_per_sweep": launches[-1],
+                      "first_s": secs[0], "repeat_s": secs[1:],
+                      "shard_dispatches": stats["shard_dispatches"],
+                      "bit_identical_to_direct": True}
+    # K0 on the whole grid and on each of the pool's two parts (the
+    # memoized split, laid out by the two-slot run), CUDA events, in turns
+    import torch
+    dev = torch.device(DEVICE, 0)
+    table = devicecost.device_table(hw3, dev)
+    sweep = batchcost.pack_sweep(frontier, workloads, mixes)
+    layouts = [sweep._sweep_arrays(dev)] + \
+        [part._sweep_arrays(dev) for part in sweep.split(2)]
+
+    def k0_ms(ds):
+        return timed_ms(lambda: devicecost.bank_score(
+            table.banks, *ds.arrays, table.has_knn))
+    turns = [[k0_ms(ds) for ds in layouts] for _ in range(2)]
+    out["k0_whole_ms"] = [t[0] for t in turns]
+    out["k0_part_ms"] = [t[1:] for t in turns]
+    out["part_records"] = [len(ds.host_ids) for ds in layouts[1:]]
+    return out
+
+
+def _serving_search(workload, hw3) -> dict:
+    """The popsearch configuration through ``submit_search``: the direct
+    ``population_search``'s winner and cost, within 1e-6 of the
+    oracle."""
+    from repro_torch.core import search
+    from repro_torch.core.synthesis import cost_workload
+    from repro_torch.serving import DesignCalculatorService
+    mix = {"get": 80.0, "update": 20.0}
+    direct = search.population_search(
+        workload, hw3, mix, budget=search.SearchBudget(SEARCH_BUDGET),
+        seeds=_starts(), **SEARCH_KW)
+    with DesignCalculatorService([hw3], window_s=0.002) as svc:
+        t0 = time.perf_counter()
+        served = svc.submit_search(
+            workload, hw3, mix, budget_designs=SEARCH_BUDGET,
+            seeds=_starts(), **SEARCH_KW).result(timeout=600)
+        took = time.perf_counter() - t0
+        stats = svc.stats()
+    assert served["design"].chain == direct["design"].chain, \
+        (served["design"].describe(), direct["design"].describe())
+    assert served["cost_s"] == direct["cost_s"], \
+        (served["cost_s"], direct["cost_s"])
+    oracle = cost_workload(served["design"], workload, hw3, mix)
+    rel = _oracle_rel(served["cost_s"], oracle)
+    assert rel <= ORACLE_RTOL, f"served search vs oracle {rel:.3e}"
+    assert stats["fallback_flat"] == stats["fallback_grouped"] == 0
+    return {"design": served["design"].describe(),
+            "cost_s": served["cost_s"], "oracle_rel_err": rel,
+            "designs_costed": served["designs_costed"],
+            "generations": served["generations"], "served_s": took,
+            "sweeps": stats["sweeps"], "answered": stats["answered"]}
+
+
+def _serving_healing(workload, h1) -> dict:
+    """A corrupt fused total heals inside the pool (retried on the slot,
+    still the fused engine).  Corrupt banks fail the question (on the
+    card the host's grouped oracle never answers), and the recovery
+    probe rebuilds the banks and brings the fused engine back."""
+    from repro_torch.core import devicecost, elements as el, whatif
+    from repro_torch.serving import (DesignCalculatorService,
+                                     FusedEngineDown, NonFiniteScore)
+    from repro_torch.testing.faults import FaultPlan, FaultRule
+    q = (el.spec_btree(), el.spec_csb_tree(), workload, h1)
+    oracle = whatif.what_if_design(*q, engine="scalar")
+    out = {}
+    probe_s = 0.3
+    with DesignCalculatorService([h1], window_s=0.002,
+                                 engine_probe_s=probe_s) as svc:
+        svc.what_if_design(*q)
+        plan = FaultPlan(11, [FaultRule("devicecost.fused", kind="corrupt",
+                                        at=(0,))])
+        with plan.activate():
+            got = svc.what_if_design(*q)
+        stats = svc.stats()
+        assert plan.fires("devicecost.fused") == 1
+        assert got.engine == "fused", got.engine
+        assert _oracle_rel(got.baseline_seconds,
+                           oracle.baseline_seconds) <= ORACLE_RTOL
+        assert stats["shard_nonfinite"] >= 1 and \
+            stats["shard_retries"] >= 1, stats
+        assert stats["fallback_grouped"] == 0, stats
+        out["fused_corrupt"] = {k: stats[k] for k in (
+            "shard_nonfinite", "shard_retries", "fallback_flat",
+            "fallback_grouped")}
+
+        devicecost.invalidate_table(h1)
+        plan = FaultPlan(13, [FaultRule("devicecost.banks", kind="corrupt",
+                                        rate=1.0, max_fires=1)])
+        with plan.activate():
+            try:
+                svc.what_if_design(*q)
+            except NonFiniteScore:
+                pass
+            else:
+                raise AssertionError("corrupt banks answered a question")
+        assert plan.fires("devicecost.banks") == 1
+        assert svc.health()["engines"][h1.name]["engine"] == "down"
+        try:
+            svc.what_if_design(*q)
+        except FusedEngineDown:
+            refused = True
+        else:
+            refused = False
+        time.sleep(probe_s + 0.05)
+        back = svc.what_if_design(*q)
+        stats = svc.stats()
+        assert back.engine == "fused", back.engine
+        assert stats["engine_recovered"] == 1, stats
+        assert stats["fallback_grouped"] == 0, stats
+        assert _oracle_rel(back.baseline_seconds,
+                           oracle.baseline_seconds) <= ORACLE_RTOL
+        assert _oracle_rel(back.variant_seconds,
+                           oracle.variant_seconds) <= ORACLE_RTOL
+        out["banks_corrupt"] = {k: stats[k] for k in (
+            "nonfinite_groups", "failed", "fallback_grouped",
+            "engine_degraded", "engine_recovered")}
+        out["banks_corrupt"]["refused_while_down"] = refused
     return out
 
 
@@ -1501,6 +1889,24 @@ def main(argv=None) -> int:
         kernel_k5(args.seed, report["lm"]["launches"]),
     ]
     report["kernels_phase_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    report["serving"] = phase_serving(args.seed)
+    report["serving"]["phase_s"] = time.perf_counter() - t0
+    sv = report["serving"]
+    log(f"serving: {SERVE_QUESTIONS} questions, serial "
+        f"{sv['serial_qps']:.1f}/s, coalesced {sv['coalesced_qps']:.1f}/s "
+        f"({sv['coalesced_over_serial']:.2f}x; the reference's bar "
+        f"{SERVE_TARGET:.0f}x), latency p50/p99 serial "
+        f"{sv['serial_latency_p50_ms']:.2f}/"
+        f"{sv['serial_latency_p99_ms']:.2f} ms, coalesced "
+        f"{sv['coalesced_latency_p50_ms']:.2f}/"
+        f"{sv['coalesced_latency_p99_ms']:.2f} ms, "
+        f"{sv['k0_launches_per_window']:.1f} K0 launches a window, "
+        f"card busy {sv['profile_window']['device_busy_share_traced']:.4f}"
+        f" of a traced window")
+    log("serving: " + json.dumps(sv))
+    kernels[0]["serving_launches"] = sv["launches"].get("bank_score", 0)
 
     # the search phase runs after the kernels phase: it traces many
     # short loops, and a trace late in a long process can miss K4's one

@@ -79,7 +79,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch import runtime
 from repro_torch.core import devicecost, memo as memo_module, templatecost
 from repro_torch.core.devicecost import _MODEL_NAMES, model_id as _model_id
 from repro_torch.core.elements import DataStructureSpec, Element
@@ -209,7 +208,8 @@ def _remap_ids(ids, remap, shared: Dict[int, np.ndarray]) -> np.ndarray:
 
 
 def _strip_frontier(f: "PackedFrontier") -> "PackedFrontier":
-    """A clean copy without the cached ``_f32`` layouts (capture transform)."""
+    """A clean copy without the cached per-device layouts (``_f32``) and
+    split parts (``_parts``): capture transform."""
     return PackedFrontier(f.ids, f.sizes, f.weights, f.tile_segments,
                           f.n_segments)
 
@@ -224,7 +224,8 @@ def _restore_frontier(value, env, shared=None):
 
 def _strip_sweep(s: "PackedSweep") -> "PackedSweep":
     """Capture transform: drop the device-resident ``_f32`` stacks and the
-    ``_rect`` memo (both rebuild lazily), and canonicalize a rectangular
+    ``_parts`` and ``_rect`` memos (all rebuild lazily), and canonicalize
+    a rectangular
     sweep's equal per-point ids arrays onto ONE shared object — the
     pickle then stores a single ids array per sweep (not ``n_points``
     equal copies) and :func:`_remap_ids`' sharing-preserving restore
@@ -299,18 +300,36 @@ def cache_info() -> Dict[str, Tuple]:
 # ---------------------------------------------------------------------------
 # Frontier packing (hardware-independent)
 # ---------------------------------------------------------------------------
+def _memoized(packed, attr: str, key, build):
+    """``build()`` memoized on a frozen packed frontier or sweep, in the
+    dict ``attr`` of its ``__dict__`` under ``key``.  Snapshot capture
+    rebuilds the object from its fields, which drops every such memo.
+    Two racing threads may build equal values; the last write wins."""
+    memo = packed.__dict__.get(attr)
+    if memo is None:
+        memo = {}
+        object.__setattr__(packed, attr, memo)
+    value = memo.get(key)
+    if value is None:
+        value = memo[key] = build()
+    return value
+
+
 def _per_device(packed, device, build) -> "devicecost.DeviceSweep":
-    """``build()``'s layout of a frozen packed frontier or sweep, memoized
-    per device on its ``__dict__`` (``_f32``; snapshot capture strips it).
-    Two racing threads may build equal layouts; the last write wins."""
-    per_device = packed.__dict__.get("_f32")
-    if per_device is None:
-        per_device = {}
-        object.__setattr__(packed, "_f32", per_device)
-    laid_out = per_device.get(device)
-    if laid_out is None:
-        laid_out = per_device[device] = build()
-    return laid_out
+    """``build()``'s K0 layout of a packed frontier or sweep, once per
+    device (``_f32``)."""
+    return _memoized(packed, "_f32", devicecost.resolve(device), build)
+
+
+def _score_split(parts, layout, hw: HardwareProfile) -> np.ndarray:
+    """The fused ``[W, n_designs]`` grid of ``split`` parts, part ``i``
+    laid out by ``layout(part, device)`` on device ``i`` of
+    :func:`repro_torch.core.devicecost.shard_devices`.  Each part keeps
+    its layout (``_f32``), so a repeat score of a retained grid copies
+    nothing."""
+    return devicecost.score_parts(
+        [layout(part, dev) for part, dev
+         in zip(parts, devicecost.shard_devices())], hw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,15 +362,46 @@ class PackedFrontier:
             self.ids, self.sizes[None], self.weights[None],
             self.tile_segments, self.n_segments, device))
 
+    def split(self, n_parts: int) -> List["PackedFrontier"]:
+        """Segment-contiguous sub-frontiers on tile-aligned cuts (via
+        :func:`repro_torch.core.templatecost.segment_ranges`) — the
+        serving shard pool's partition primitive, memoized per part
+        count.  Concatenating the parts' ``score`` outputs reproduces
+        ``score`` on the whole frontier bit for bit: every design's
+        records land wholly in one part."""
+        n_parts = max(min(n_parts, self.n_segments), 1)
+        if n_parts <= 1:
+            return [self]
+
+        def build():
+            seg_cuts, tile_cuts = templatecost.segment_ranges(
+                self.tile_segments, self.n_segments, n_parts)
+            tile = devicecost.TILE
+            return [PackedFrontier(
+                self.ids[tile_cuts[d] * tile:tile_cuts[d + 1] * tile],
+                self.sizes[tile_cuts[d] * tile:tile_cuts[d + 1] * tile],
+                self.weights[tile_cuts[d] * tile:tile_cuts[d + 1] * tile],
+                self.tile_segments[tile_cuts[d]:tile_cuts[d + 1]]
+                - seg_cuts[d],
+                int(seg_cuts[d + 1] - seg_cuts[d]))
+                for d in range(n_parts)]
+        return list(_memoized(self, "_parts", n_parts, build))
+
     def score(self, hw: HardwareProfile, engine: str = "fused",
               shard: Optional[bool] = None, device=None) -> np.ndarray:
         """Per-design totals under ``hw`` via the selected engine.
-        ``shard``/``device`` pass through to
-        :func:`repro_torch.core.devicecost.score_sweep` (fused only;
-        ``shard=True`` raises until multi-GPU scoring is ported)."""
+        ``shard`` splits the fused call across devices into :meth:`split`
+        parts (:func:`repro_torch.core.devicecost.shard_count` decides;
+        the parts are retained on the instance); ``device`` routes the
+        flat fused call onto one device and implies ``shard=False``."""
         if engine == "fused":
-            return devicecost.score_sweep(
-                self._device_sweep(runtime.device(device)), hw, shard)[0]
+            n_parts = 0 if device is not None else devicecost.shard_count(
+                self.n_segments, len(self.ids), shard)
+            if n_parts:
+                return _score_split(self.split(n_parts),
+                                    PackedFrontier._device_sweep, hw)[0]
+            return devicecost.score_sweep(self._device_sweep(device),
+                                          hw)[0]
         if engine != "grouped":
             raise ValueError(f"unknown engine: {engine!r}")
         segments = self.segments
@@ -532,22 +582,60 @@ class PackedSweep:
                 f0.tile_segments, self.n_designs, device)
         return _per_device(self, device, build)
 
+    def split(self, n_parts: int) -> List["PackedSweep"]:
+        """Design-contiguous sub-sweeps (the serving shard pool's
+        partition primitive, memoized per part count): every point's
+        frontier splits on the same design cuts, so stacking the parts'
+        grids along axis 1 reproduces ``score`` bit for bit.  Rectangular
+        sweeps stay rectangular — each cut's ids slice is shared across
+        points by object identity, like the parent's interned ids."""
+        n_parts = max(min(n_parts, self.n_designs), 1)
+        if n_parts <= 1:
+            return [self]
+
+        def build():
+            shared_ids: Dict[int, List[np.ndarray]] = {}
+            per_point: List[List[PackedFrontier]] = []
+            for f in self.frontiers:
+                parts = f.split(n_parts)
+                cached = shared_ids.get(id(f.ids))
+                if cached is None:
+                    shared_ids[id(f.ids)] = [p.ids for p in parts]
+                else:
+                    parts = [PackedFrontier(cached[d], p.sizes, p.weights,
+                                            p.tile_segments, p.n_segments)
+                             for d, p in enumerate(parts)]
+                per_point.append(parts)
+            return [PackedSweep(self.points, per_point[0][d].n_segments,
+                                tuple(row[d] for row in per_point))
+                    for d in range(n_parts)]
+        return list(_memoized(self, "_parts", n_parts, build))
+
     def score(self, hw: HardwareProfile, engine: str = "fused",
               shard: Optional[bool] = None, device=None) -> np.ndarray:
         """The ``[n_points, n_designs]`` totals grid under ``hw``.
 
         ``engine="grouped"`` scores each point's frontier through the
         grouped oracle — bit-identical to looping ``cost_many(...,
-        engine="grouped")`` per workload.  ``device`` picks the device of
-        the fused call; ``shard=True`` raises until multi-GPU scoring is
-        ported.
+        engine="grouped")`` per workload.  ``shard`` splits the fused
+        grid across devices into :meth:`split` design ranges
+        (:func:`repro_torch.core.devicecost.shard_count` decides; the
+        parts are retained on the instance); ``device`` routes the flat
+        fused call onto one device and implies ``shard=False``.
         """
         if self.n_designs == 0 or not self.points:
             return np.zeros((self.n_points, self.n_designs))
         if engine == "fused":
             if self.rectangular:
-                return devicecost.score_sweep(
-                    self._sweep_arrays(runtime.device(device)), hw, shard)
+                n_parts = 0 if device is not None else \
+                    devicecost.shard_count(
+                        self.n_designs,
+                        self.n_points * len(self.frontiers[0].ids), shard)
+                if n_parts:
+                    return _score_split(self.split(n_parts),
+                                        PackedSweep._sweep_arrays, hw)
+                return devicecost.score_sweep(self._sweep_arrays(device),
+                                              hw)
             # non-rectangular: one spliced flat fused call over the
             # whole grid (point-major), not one call per point
             flat = concat_frontiers(list(self.frontiers))

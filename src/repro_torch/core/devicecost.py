@@ -44,15 +44,24 @@ dropping them changes no total.  :func:`to_device_sweep` lays a sweep
 (or, with ``W = 1``, a frontier) out once: when it holds at most
 ``_MAX_FUSED_RECORDS`` (workload, record) cells it stays resident on the
 device, and every later score is one launch with no host->device copy;
-a larger grid stays on the host and streams through in chunks of
-:func:`sweep_chunk` records, accumulated in float64.  Bank widths are
-fixed per process, which makes a what-if-hardware question a pure
-parameter-table swap: a new profile builds new banks of identical shape
-and reuses the compiled kernel — :func:`specialisation_count` counts the
-kernel specialisations asked for and must not move across a swap.  The
-reference's multi-device paths (pmap shards, the shard-threshold
-calibration, per-device bank replicas) are not ported yet:
-``shard=True`` raises.
+a larger grid stays on the host and streams through in chunks of at
+most :func:`sweep_chunk` records, each ending on a design boundary
+(:func:`chunk_bounds`).  Bank widths are fixed per process, which makes
+a what-if-hardware question a pure parameter-table swap: a new profile
+builds new banks of identical shape and reuses the compiled kernel —
+:func:`specialisation_count` counts the kernel specialisations asked for
+and must not move across a swap.
+
+Several devices: a profile's banks are built once and committed to each
+device that scores with them once (:func:`device_table`,
+:func:`_banks_on`).  The reference's pmap becomes one K0 launch per part
+(:func:`score_parts`): the packed grid is cut into contiguous,
+tile-aligned design ranges by its ``split``, each part is scored on its
+own device and the totals are joined in order.  ``shard=None`` splits
+once a grid clears :func:`shard_threshold`; ``shard=True`` splits on one
+device too.  Every path (resident, chunked, split) reduces each design's
+records in one float32 pass that starts at the design's first record,
+so split totals equal the flat call's bit for bit.
 
 Totals agree with the scalar oracle to <=1e-6 relative (banked float32
 evaluation; the segment reduction runs in float32).
@@ -61,7 +70,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -172,11 +182,29 @@ class DeviceTable:
     device: torch.device
 
 
+def resolve(device: Optional[runtime.DeviceLike] = None) -> torch.device:
+    """:func:`repro_torch.runtime.device` with the CUDA index filled in,
+    so ``cuda`` and ``cuda:0`` key one layout and one bank replica."""
+    dev = runtime.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _publish(dev: torch.device) -> None:
+    """Drain this thread's stream on ``dev`` before the tensors it just
+    filled enter a memo: the copies from pageable host memory may still
+    be in flight, and another scoring slot's stream may read the tensors
+    next.  A no-op on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
 def build_table(hw: HardwareProfile, *, sig_slots: int = _SIG_SLOTS,
                 knn_slots: int = _KNN_SLOTS,
                 device: Optional[runtime.DeviceLike] = None) -> DeviceTable:
     """Pack every fitted model of ``hw`` into stacked device banks."""
-    dev = runtime.device(device)
+    dev = resolve(device)
     for name in hw.models:
         model_id(name)          # rows must exist for every profile model
     needed_sig = max([sig_slots] + [
@@ -239,6 +267,7 @@ def build_table(hw: HardwareProfile, *, sig_slots: int = _SIG_SLOTS,
     # gather indices stay intact), surfacing as non-finite fused totals
     # until invalidate_table() forces a clean rebuild
     banks = faults.corrupt("devicecost.banks", banks, key=hw.name)
+    _publish(dev)
     return DeviceTable(hw.name, banks, avail, len(_MODEL_NAMES),
                        sig_slots, knn_slots,
                        has_knn=bool((kinds[avail] == KIND_KNN).any()),
@@ -248,38 +277,82 @@ def build_table(hw: HardwareProfile, *, sig_slots: int = _SIG_SLOTS,
 def device_table(hw: HardwareProfile,
                  device: Optional[runtime.DeviceLike] = None
                  ) -> DeviceTable:
-    """The (cached) device table of a profile, rebuilt when stale.
+    """The (cached) device table of a profile on ``device``.
 
-    A table goes stale when the global model-name interning has grown past
-    its watermark, when the profile's models dict is no longer the one
-    that was banked, or when it lives on another device than the one
-    asked for.  Bank *shapes* stay fixed until a power-of-two boundary
-    crosses, so rebuilds almost never need a new kernel specialisation.
+    A profile keeps one fitted table, built on the first device that asks
+    and rebuilt when stale: when the global model-name interning has
+    grown past its watermark, or when the profile's models dict is no
+    longer the one that was banked.  Another device gets the same banks
+    committed to it once (:func:`_banks_on`).  Bank *shapes* stay fixed
+    until a power-of-two boundary crosses, so rebuilds almost never need
+    a new kernel specialisation.
     """
-    dev = runtime.device(device)
+    dev = resolve(device)
 
     def _current(table) -> bool:
         return table is not None and \
             table.n_interned == len(_MODEL_NAMES) and \
-            table.models_ref == id(hw.models) and table.device == dev
+            table.models_ref == id(hw.models)
 
     with MEMO_LOCK:   # consistent staleness check vs concurrent interning
         table = hw._device_table
-        if _current(table):
-            return table
-    # build outside the lock; two racing threads may build duplicate
-    # (equal) tables, last write wins
-    table = build_table(hw, device=dev)
-    with MEMO_LOCK:
-        hw._device_table = table
-        return table
+        current = _current(table)
+    if not current:
+        # scoring slots that start together build the table once: the
+        # first builds (outside the memo lock), the others find it built
+        with _TABLE_LOCK:
+            with MEMO_LOCK:
+                table = hw._device_table
+                current = _current(table)
+            if not current:
+                table = build_table(hw, device=dev)
+                with MEMO_LOCK:
+                    stale = hw._device_table
+                    hw._device_table = table
+                    if stale is not None:
+                        _BANK_REPLICAS.discard(lambda k, v: v[0] is stale)
+    return _banks_on(table, dev)
 
 
 def invalidate_table(hw: HardwareProfile) -> None:
-    """Drop a profile's cached device table, so the next
-    :func:`device_table` call rebuilds the banks from the fitted models."""
+    """Drop a profile's cached device table and every device's copy of
+    it, so the next :func:`device_table` call rebuilds the banks from the
+    fitted models (the serving tier's recovery probe relies on this)."""
     with MEMO_LOCK:
+        stale = hw._device_table
         hw._device_table = None
+        if stale is not None:
+            _BANK_REPLICAS.discard(lambda k, v: v[0] is stale)
+
+
+#: a table's banks committed to another device than the one it was built
+#: on: (id(table), device) -> (table, replica).  The value holds the
+#: table, so its id cannot be reused while the entry lives, and a rebuilt
+#: or invalidated table discards its replicas.
+_BANK_REPLICAS = memo.DictCache(maxsize=32, name="device_banks")
+#: serialises table builds and replica copies (see device_table)
+_TABLE_LOCK = threading.Lock()
+
+
+def _banks_on(table: DeviceTable, device: torch.device) -> DeviceTable:
+    """``table`` with its banks on ``device``: the table itself where it
+    was built, else a replica copied once and memoized."""
+    if table.device == device:
+        return table
+    key = (id(table), str(device))
+    hit = _BANK_REPLICAS.get(key)
+    if hit is not None and hit[0] is table:
+        return hit[1]
+    with _TABLE_LOCK:
+        hit = _BANK_REPLICAS.get(key)
+        if hit is not None and hit[0] is table:
+            return hit[1]
+        replica = dataclasses.replace(
+            table, banks={k: v.to(device) for k, v in table.banks.items()},
+            device=device)
+        _publish(device)
+        _BANK_REPLICAS.put(key, (table, replica))
+    return replica
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +469,13 @@ def specialisation_count() -> int:
 def _note_specialisation(key: Tuple) -> None:
     with MEMO_LOCK:
         _SPECIALISATIONS.add(key)
+
+
+#: (specialisation, device) pairs K0 has been launched with: Triton
+#: compiles at a pair's first launch, which this lock serialises so two
+#: scoring slots starting together never compile one kernel at once
+_LAUNCHED: set = set()
+_FIRST_LAUNCH_LOCK = threading.Lock()
 
 
 def _libdevice():
@@ -562,16 +642,32 @@ def bank_score(banks: Dict[str, torch.Tensor], ids: torch.Tensor,
     if n_seg <= 0 or w_axis == 0 or n_rec == 0:
         return torch.zeros((w_axis, max(n_seg, 0)), dtype=torch.float32,
                            device=dev)
+    stream = torch.cuda.current_stream(dev)
+    if stream != torch.cuda.default_stream(dev):
+        # a scoring slot's own stream reads layouts and banks that other
+        # streams allocated: keep their memory from being handed out
+        # again until this launch is done with it
+        for t in bank_list + [ids, sizes, weights, seg_tiles]:
+            t.record_stream(stream)
     # every (w, design) total is stored by its program, empty designs too
     out = torch.empty((w_axis, n_seg), dtype=torch.float32, device=dev)
-    kernel = _k0_kernel()
     grid = (n_seg, -(-w_axis // _BLOCK_W))
-    with torch.cuda.device(dev):
-        kernel[grid](*bank_list, ids, sizes, weights, seg_tiles, out,
-                     w_axis, stride_w, n_seg,
-                     WITH_KNN=bool(with_knn), SIG=sig_slots, KNN=knn_slots,
-                     TILE_R=TILE, BLOCK_W=_BLOCK_W, BLOCK_R=_BLOCK_R,
-                     num_warps=_NUM_WARPS)
+
+    def launch():
+        with torch.cuda.device(dev):
+            _k0_kernel()[grid](
+                *bank_list, ids, sizes, weights, seg_tiles, out, w_axis,
+                stride_w, n_seg, WITH_KNN=bool(with_knn), SIG=sig_slots,
+                KNN=knn_slots, TILE_R=TILE, BLOCK_W=_BLOCK_W,
+                BLOCK_R=_BLOCK_R, num_warps=_NUM_WARPS)
+
+    first = (bool(with_knn), sig_slots, knn_slots, dev)
+    if first in _LAUNCHED:
+        launch()
+    else:
+        with _FIRST_LAUNCH_LOCK:
+            launch()
+            _LAUNCHED.add(first)
     _K0_LAUNCHES.hit()
     return out
 
@@ -594,6 +690,25 @@ def sweep_chunk(w_axis: int) -> int:
     no design block is ever split mid-tile."""
     return max((_MAX_FUSED_RECORDS // max(w_axis, 1)) // TILE * TILE,
                TILE)
+
+
+def chunk_bounds(cuts: np.ndarray, step: int) -> List[Tuple[int, int]]:
+    """The ``(first, end)`` tile ranges a grid past the ceiling streams
+    through, ``step`` tiles at most: each ends on a design boundary, and
+    a design longer than ``step`` tiles gets a chunk of its own.  So a
+    chunk holds whole designs, and K0 reduces every design in one pass
+    as in the resident layout: chunked, resident and split layouts give
+    each design the same float32 total."""
+    bounds: List[Tuple[int, int]] = []
+    n_tiles = int(cuts[-1]) if len(cuts) else 0
+    lo = 0
+    while lo < n_tiles:
+        hi = int(cuts[np.searchsorted(cuts, lo + step, side="right") - 1])
+        if hi <= lo:
+            hi = int(cuts[np.searchsorted(cuts, lo, side="right")])
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -634,7 +749,7 @@ def to_device_sweep(ids, sizes, weights, tile_segments, n_segments: int,
     TILE-aligned per design, ``tile_segments`` sorted ascending) for K0:
     its real-record cuts, and the grid itself on the device when it fits
     the ceiling."""
-    dev = runtime.device(device)
+    dev = resolve(device)
     host_ids = np.asarray(ids, np.int32)
     tiles = np.asarray(tile_segments)
     cuts = segment_cuts(tiles, n_segments)
@@ -642,6 +757,8 @@ def to_device_sweep(ids, sizes, weights, tile_segments, n_segments: int,
             np.asarray(weights, np.float32), cuts)
     resident = host[1].size <= _MAX_FUSED_RECORDS
     arrays = tuple(_to_device(a, dev) for a in host) if resident else host
+    if resident:
+        _publish(dev)
     return DeviceSweep(host_ids, tiles, cuts, arrays, n_segments, dev,
                        resident)
 
@@ -654,26 +771,15 @@ def _check_frontier(table: DeviceTable, ids: np.ndarray) -> None:
                        f"model for: {missing}")
 
 
-def _refuse_shard(shard: Optional[bool]) -> None:
-    if shard:
-        raise NotImplementedError(
-            "sharded scoring across several GPUs is not ported yet; "
-            "score on one device (shard=None or False)")
-
-
 def _score_chunks(table: DeviceTable, ds: DeviceSweep) -> torch.Tensor:
     """Float64 ``[W, n_segments]`` totals of a grid past the ceiling: one
-    K0 launch per :func:`sweep_chunk` records, each chunk copied to the
-    device and given its designs' cuts clipped to its tiles.  A design
-    split across two chunks adds its two partial totals."""
+    K0 launch per :func:`chunk_bounds` chunk, each copied to the device
+    and given its designs' cuts."""
     ids, sizes, weights, cuts = ds.arrays
     dev = table.device
     totals = torch.zeros((ds.w_axis, ds.n_segments), dtype=torch.float64,
                          device=dev)
-    n_tiles = len(ds.tile_segments)
-    step = sweep_chunk(ds.w_axis) // TILE
-    for t_lo in range(0, n_tiles, step):
-        t_hi = min(t_lo + step, n_tiles)
+    for t_lo, t_hi in chunk_bounds(cuts, sweep_chunk(ds.w_axis) // TILE):
         seg_lo = int(ds.tile_segments[t_lo])
         seg_hi = int(ds.tile_segments[t_hi - 1]) + 1
         local = np.clip(cuts[seg_lo:seg_hi + 1], t_lo, t_hi) - t_lo
@@ -683,8 +789,90 @@ def _score_chunks(table: DeviceTable, ds: DeviceSweep) -> torch.Tensor:
                           _to_device(weights[:, rows], dev),
                           _to_device(local.astype(np.int32), dev),
                           table.has_knn)
-        totals[:, seg_lo:seg_hi] += part.to(torch.float64)
+        totals[:, seg_lo:seg_hi] = part.to(torch.float64)
     return totals
+
+
+def _launch(table: DeviceTable, ds: DeviceSweep) -> torch.Tensor:
+    """Float64 ``[W, n_segments]`` totals of one layout on its device,
+    not yet read back: one K0 launch when resident, one per chunk
+    otherwise."""
+    if ds.resident:
+        return bank_score(table.banks, *ds.arrays,
+                          table.has_knn).to(torch.float64)
+    return _score_chunks(table, ds)
+
+
+# ---------------------------------------------------------------------------
+# Several devices: parts of a grid, one K0 launch each on its own device
+# ---------------------------------------------------------------------------
+_SHARD_STATE: Dict[str, Optional[int]] = {"override": None}
+
+
+def shard_devices(home: Optional[runtime.DeviceLike] = None
+                  ) -> Tuple[torch.device, ...]:
+    """The devices a grid split across devices uses, in part order: every
+    visible CUDA device when ``home`` (default the runtime device) is
+    CUDA, else ``home`` alone."""
+    home = resolve(home)
+    if home.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (home,)
+
+
+def set_shard_threshold(records: Optional[int]) -> None:
+    """Override the auto-split cut-over (records of a frontier, cells of
+    a sweep); ``None`` restores the default."""
+    with MEMO_LOCK:
+        _SHARD_STATE["override"] = \
+            None if records is None else max(int(records), 1)
+
+
+def shard_threshold() -> int:
+    """Grid size (frontier records / sweep cells) from which
+    ``shard=None`` splits across devices: the :func:`set_shard_threshold`
+    override, else ``_MAX_FUSED_RECORDS``, which is the reference's
+    one-device answer.  The reference's calibration (one launch timed
+    against the split on synthetic frontiers) is not ported: no run on
+    several cards has measured the split yet, so by default only a grid
+    past the resident ceiling, which streams in chunks anyway, splits."""
+    override = _SHARD_STATE["override"]
+    return _MAX_FUSED_RECORDS if override is None else int(override)
+
+
+def shard_count(n_designs: int, n_cells: int,
+                shard: Optional[bool] = None) -> int:
+    """How many design-range parts a grid of ``n_designs`` designs and
+    ``n_cells`` (workload, record) cells is scored in, 0 for the flat
+    call: ``shard=True`` takes ``min(devices, n_designs)`` parts (one
+    part on one device: the split path runs there too), ``shard=None``
+    as many once there are two devices and the grid clears
+    :func:`shard_threshold`, ``shard=False`` none."""
+    if shard is False or n_designs <= 0:
+        return 0
+    n = max(min(len(shard_devices()), n_designs), 1)
+    if shard is True:
+        return n
+    return n if n > 1 and n_cells >= shard_threshold() else 0
+
+
+def score_parts(layouts: Sequence[DeviceSweep], hw: HardwareProfile
+                ) -> np.ndarray:
+    """``[W, n_segments]`` totals of a grid laid out as design-range
+    parts (:meth:`repro_torch.core.batchcost.PackedFrontier.split`, each
+    part on its own device): every part's K0 launch goes out against the
+    banks committed to its device, then all are read back and joined in
+    order, so the devices work at once.  Every design lies wholly in one
+    part and K0 reduces it in one pass, so the totals equal the flat
+    call's bit for bit."""
+    pending = []
+    for ds in layouts:
+        table = device_table(hw, ds.device)
+        _check_frontier(table, ds.host_ids)
+        pending.append(_launch(table, ds))
+    return faults.corrupt("devicecost.fused", np.concatenate(
+        [t.cpu().numpy() for t in pending], axis=1))
 
 
 def score_sweep(ds: DeviceSweep, hw: HardwareProfile,
@@ -692,15 +880,13 @@ def score_sweep(ds: DeviceSweep, hw: HardwareProfile,
     """``[W, n_segments]`` totals of a grid laid out by
     :func:`to_device_sweep` (a frontier is the ``W = 1`` sweep) under
     ``hw``: one K0 launch when the grid is resident, else one per chunk.
-    ``shard=True`` raises until multi-GPU scoring is ported."""
-    _refuse_shard(shard)
+    One layout is one part on its own device, whatever ``shard`` says:
+    the split across devices is cut from the packed grid
+    (:meth:`repro_torch.core.batchcost.PackedSweep.score` and
+    :meth:`~repro_torch.core.batchcost.PackedFrontier.score`, whose
+    ``split`` is the one partition), where each part keeps its own
+    layout."""
+    del shard
     if ds.n_segments == 0 or ds.w_axis == 0:
         return np.zeros((ds.w_axis, ds.n_segments), np.float64)
-    table = device_table(hw, ds.device)
-    _check_frontier(table, ds.host_ids)
-    if ds.resident:
-        totals = bank_score(table.banks, *ds.arrays,
-                            table.has_knn).to(torch.float64)
-    else:
-        totals = _score_chunks(table, ds)
-    return faults.corrupt("devicecost.fused", totals.cpu().numpy())
+    return score_parts([ds], hw)

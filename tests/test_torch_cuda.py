@@ -437,3 +437,105 @@ def test_population_search_on_cuda_matches_cpu(cuda):
     assert got["generations"] == want["generations"]
     assert abs(got["cost_s"] - want["cost_s"]) <= 1e-6 * want["cost_s"]
     assert k0 >= 1
+
+
+# ---------------------------------------------------------------------------
+# The serving tier's scoring slots on the card
+# ---------------------------------------------------------------------------
+def _serving_grid():
+    specs = [el.spec_btree(), el.spec_hash_table(), el.spec_skip_list(),
+             el.spec_btree(fanout=40), el.spec_trie()] * 30
+    n_points = 7
+    sweep = pack_sweep(specs, [Workload(n_entries=500_000)] * n_points,
+                       [{"get": 10.0 + i, "update": 5.0}
+                        for i in range(n_points)])
+    packed = pack_frontier(specs, Workload(n_entries=800_000),
+                           {"get": 60.0, "update": 40.0})
+    return sweep, packed
+
+
+def test_pool_parts_on_two_slots_of_one_card_equal_the_flat_call(
+        cuda, monkeypatch):
+    """Two slots of cuda:0, each on its own stream, split a sweep and a
+    frontier into two K0 launches; the merged totals equal the flat
+    call's bit for bit, and so does ``score(shard=True)`` split over two
+    devices that are both cuda:0."""
+    from repro_torch.serving import ScoringShardPool
+    hw = hardware.hw1()
+    sweep, packed = _serving_grid()
+    flat_grid = sweep.score(hw, shard=False)
+    flat_totals = packed.score(hw, shard=False)
+    pool = ScoringShardPool(devices=["cuda:0", "cuda:0"],
+                            min_cells_per_shard=1)
+    try:
+        for _ in range(3):
+            reset_launch_counts()
+            grid, used = pool.score_sweep(sweep, hw)
+            assert used == 2 and launch_counts()["bank_score"] == 2
+            np.testing.assert_array_equal(grid, flat_grid)
+            totals, used = pool.score_frontier(packed, hw)
+            assert used == 2
+            np.testing.assert_array_equal(totals, flat_totals)
+    finally:
+        pool.close()
+    monkeypatch.setattr(devicecost, "shard_devices",
+                        lambda home=None: (torch.device("cuda", 0),) * 2)
+    reset_launch_counts()
+    np.testing.assert_array_equal(sweep.score(hw, shard=True), flat_grid)
+    np.testing.assert_array_equal(packed.score(hw, shard=True),
+                                  flat_totals)
+    assert launch_counts()["bank_score"] == 4
+
+
+def test_layout_built_on_one_stream_scores_on_another(cuda):
+    """50 times: a fresh layout and fresh banks are built on one stream
+    while that stream is held by a device-side sleep, then scored at once
+    on another stream — the same totals as the default stream's."""
+    import dataclasses
+    hw = hardware.hw3()
+    sweep, _ = _serving_grid()
+    want = sweep.score(hw, shard=False)
+    dev = devicecost.resolve(cuda)
+    first, second = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    for i in range(50):
+        fresh = dataclasses.replace(sweep)          # no memoized layout
+        hw_fresh = dataclasses.replace(hw, name=f"HW3-{i}",
+                                       models=dict(hw.models))
+        with torch.cuda.stream(first):
+            torch.cuda._sleep(2_000_000)
+            layout = fresh._sweep_arrays(dev)
+            devicecost.device_table(hw_fresh, dev)
+        with torch.cuda.stream(second):
+            got = devicecost.score_sweep(layout, hw_fresh, shard=False)
+        np.testing.assert_array_equal(got, want)
+    torch.cuda.synchronize()
+
+
+def test_banks_built_once_per_device(cuda, monkeypatch):
+    """A profile's banks are fitted into one table once; each other
+    device gets one replica, however many slots and scores use it."""
+    from repro_torch.serving import ScoringShardPool
+    hw = hardware.hw2()
+    sweep, packed = _serving_grid()
+    builds = []
+    build = devicecost.build_table
+    monkeypatch.setattr(devicecost, "build_table",
+                        lambda *a, **k: builds.append(1) or build(*a, **k))
+    devicecost.invalidate_table(hw)
+    pool = ScoringShardPool(devices=["cuda:0", "cuda:0", "cpu"],
+                            min_cells_per_shard=1)
+    try:
+        for _ in range(4):
+            assert pool.score_sweep(sweep, hw)[1] == 3
+            assert pool.score_frontier(packed, hw)[1] == 3
+            packed.score(hw)
+    finally:
+        pool.close()
+    assert builds == [1]
+    table = hw._device_table
+    replicas = [k for k in devicecost._BANK_REPLICAS.keys()
+                if k[0] == id(table)]
+    assert len(replicas) == 1
+    devicecost.invalidate_table(hw)
+    assert not [k for k in devicecost._BANK_REPLICAS.keys()
+                if k[0] == id(table)]

@@ -6,8 +6,8 @@ frontier and sweep scoring against the reference's fused engine
 at rtol 1e-6, plus the port's own contracts: chunked == unchunked, the
 real-record cuts equal the reference's padded layout bit for bit, a
 retained sweep stays device-resident, a what-if-hardware swap adds no
-kernel specialisation, ``shard=True`` raises, and plain-path scoring
-launches no kernel.
+kernel specialisation, ``shard=True`` equals the flat call, and
+plain-path scoring launches no kernel.
 """
 import dataclasses
 
@@ -120,7 +120,9 @@ def test_chunked_scoring_matches_unchunked(monkeypatch, kind):
     monkeypatch.setattr(p_dc, "_MAX_FUSED_RECORDS", 256)
     object.__setattr__(packed, "_f32", None)     # drop the padded cache
     chunked = packed.score(hw)
-    np.testing.assert_allclose(chunked, full, rtol=1e-6)
+    # chunks end on design boundaries: every design is reduced as in the
+    # resident layout
+    np.testing.assert_array_equal(chunked, full)
 
 
 @pytest.mark.parametrize("kind", ["frontier", "sweep"])
@@ -214,14 +216,20 @@ def test_hardware_swap_adds_no_specialisation():
 
 
 def test_shard_true_raises():
+    """``shard=True`` raised until multi-device scoring was ported; now it
+    splits the grid (on one device too) and equals the flat call bit for
+    bit, through the packed objects and through ``score_sweep``."""
     hw = p_hw.hw1()
     w = p_syn.Workload(n_entries=500_000)
     packed = p_batch.pack_frontier(_specs(p_el), w, MIX)
-    with pytest.raises(NotImplementedError):
-        packed.score(hw, shard=True)
+    np.testing.assert_array_equal(packed.score(hw, shard=True),
+                                  packed.score(hw, shard=False))
     sweep = p_batch.pack_sweep(_specs(p_el), [w] * 2)
-    with pytest.raises(NotImplementedError):
-        sweep.score(hw, shard=True)
+    np.testing.assert_array_equal(sweep.score(hw, shard=True),
+                                  sweep.score(hw, shard=False))
+    ds = sweep._sweep_arrays(runtime.device())
+    np.testing.assert_array_equal(p_dc.score_sweep(ds, hw, shard=True),
+                                  p_dc.score_sweep(ds, hw, shard=False))
     np.testing.assert_array_equal(packed.score(hw, shard=False),
                                   packed.score(hw))
 
