@@ -30,6 +30,22 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   (float32 compute: logits and KV cache within 5e-2; bf16 compute: no
   further from the float32 logits than the plain path); one prefill and
   four decode steps are traced with ``torch.profiler``.
+* ``families`` (last, after the search phase): every other model family at
+  its published widths and depths, random weights from ``--seed``, flash
+  attention, one model at a time with its peak memory: granite-moe-1b
+  (4 x 2,048-token fused prefill, K5 24 times, and 32 decode steps
+  through ``serve_batch``; tokens dropped by capacity; the MoE spans'
+  device time), zamba2-1.2b and xlstm-350m (forward on 4 x 2,048 tokens,
+  zamba2's 7 shared-attention applications on K5; ``serve_batch`` on 4
+  prompts of 64 tokens, stepped, and 16 decode steps; decode against
+  forward over those positions; the scan spans' device time),
+  seamless-m4t-large-v2 (encode 4 x 1,024 frames, forward on 4 x 512
+  targets, ``prefill_cross`` and 16 decode steps: K5 non-causal and
+  with Sq != Skv), pixtral-12b (256 patches + 1,792 tokens, x 4, through
+  the fused prefill on K5's SIMT variant at D 160, and 32 decode
+  steps).  Each is held against the plain attention path as the lm
+  phase is (xlstm, without attention: float32 on the card against the
+  host's CPU); every check runs before the phase fails on any.
 * ``kernels``: every kernel against its plain PyTorch version on the
   card, at the phases' shapes plus ragged ones, with times and bounds;
   K1 also at its edges (N around its shared tree's size, N = 1-33, runs of
@@ -38,12 +54,14 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   path's sectors beside it), the Get's time and bound and the tree
   depth, NaN queries among the float32 cases; K4's hits and mask
   variants, and the bloom_probe op's device time, host time per call and
-  the kernels one call launched (traced).
+  the kernels one call launched (traced); K5 also at each family's
+  attention shapes, with SDPA's time beside it.
 * ``search``: a profile trained at the full grid (the 14 Level-2
   micro-benchmarks on the host, ``repro_torch.core.training.
-  train_profile``, every fit on the card) and held against the same fits
-  on the CPU (within 5e-3 of max |y|, the tolerance of
-  ``tests/test_torch_fit.py``), saved and reloaded; on ``hw3`` and on
+  train_profile``, every fit on the card), every step of every fit
+  replayed on the CPU from the card's record (``models.replay_gap``) and
+  each final fit's gap from the same fit on the CPU recorded, saved and
+  reloaded; on ``hw3`` and on
   that profile the reference's population-search configuration
   (``benchmarks/popsearch_bench.py``: budget 256, population 16, seed
   10) run twice — the same winner and cost, no new K0 specialisation —
@@ -73,7 +91,7 @@ Prints the card's name and power limit, one JSON line with the kernels,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
 ``--only whatif`` runs the whatif phase alone and ``--only stores`` times
-K1 and the bloom_probe op at the kvstore shapes; both print no result
+K1 and the bloom_probe op at the kvstore shapes; they print no result
 line.
 """
 from __future__ import annotations
@@ -274,8 +292,18 @@ SEARCH_KW = {"population": 16, "generations": 200, "refine_top": 2,
              "refine_steps": 2, "seed": 10}
 BEAM_WIDTH, BEAM_ROUNDS = 8, 64
 #: fitted predictions, card against CPU, as a share of max |y|: the
-#: tolerance tests/test_torch_fit.py states and justifies
+#: tolerance tests/test_torch_fit.py states and justifies (recorded
+#: here: on fresh host timings the fits drift past it, see
+#: REPLAY_GRAD_TOL)
 FIT_ATOL = 5e-3
+#: every Adam step of a card fit replayed on the CPU from the card's
+#: record (models.replay_gap): the gradient at the card's parameters
+#: over the fit's largest gradient entry (CPU fits of data one float32
+#: ulp apart, replayed against each other: up to 6.7e-6; a wrong
+#: gradient is off by its own size), and the update from the card's
+#: state and gradient over its terms' size (a few float32 ulps; a wrong
+#: moment, bias correction or projection is off by 1e-3 or more)
+REPLAY_GRAD_TOL, REPLAY_UPDATE_TOL = 1e-4, 1e-5
 ORACLE_RTOL = 1e-6
 #: the fitters' two families, by model kind
 FAMILIES = {"linear": "linear_basis", "log_linear": "linear_basis",
@@ -416,7 +444,7 @@ def popsearch(label: str, hw, workload, mix) -> dict:
 
 def phase_search(seed: int) -> dict:
     """Train a profile at the full grid (measurements on the host, fits
-    on the card), hold the fits against the same fits on the CPU, save
+    on the card), replay every fit's steps on the CPU, save
     and reload it, then run the reference's population-search
     configuration on hw3 and on that profile, a 64-point search and a
     two-region hybrid, every winner against the scalar oracle."""
@@ -429,8 +457,9 @@ def phase_search(seed: int) -> dict:
     out = {}
     reset_launch_counts()
     t_path = time.perf_counter()
-    measured = {}
-    trained = training.train_profile("HW-card-host", measurements=measured)
+    measured, records = {}, {}
+    trained = training.train_profile("HW-card-host", measurements=measured,
+                                     records=records)
     c = trained.constants
     out["training_s"] = c["training_seconds"]
     out["measure_s"] = c["training_seconds"] - c["fitting_seconds"]
@@ -444,7 +473,21 @@ def phase_search(seed: int) -> dict:
     out["grid_sizes"] = {p: len(x) for p, (x, _) in measured.items()}
     assert all(np.isfinite(v) for v in out["r2"].values())
 
-    # the same (x, y) fitted on the CPU: the card's fit within FIT_ATOL
+    # every step of every card fit replayed on the CPU from the card's
+    # record: gradients within REPLAY_GRAD_TOL, updates REPLAY_UPDATE_TOL
+    t0 = time.perf_counter()
+    replay = {p: models.replay_gap(r, "cpu") for p, r in records.items()
+              if r}
+    out["replay_s"] = time.perf_counter() - t0
+    out["card_replay_on_cpu"] = replay
+    out["card_replay_on_cpu_max"] = {
+        k: max(r[k] for r in replay.values()) for k in ("grad", "update")}
+    assert out["card_replay_on_cpu_max"]["grad"] <= REPLAY_GRAD_TOL and \
+        out["card_replay_on_cpu_max"]["update"] <= REPLAY_UPDATE_TOL, \
+        f"card fit steps replayed on the CPU: {replay}"
+    # the same (x, y) fitted on the CPU from the start, recorded: the
+    # two fits drift apart by as much as two CPU fits of data one ulp
+    # apart (scripts/fit_spread.py), past FIT_ATOL in some runs
     t0 = time.perf_counter()
     worst = {}
     for pname, (x, y) in measured.items():
@@ -459,8 +502,8 @@ def phase_search(seed: int) -> dict:
     out["cpu_refit_s"] = time.perf_counter() - t0
     out["card_vs_cpu_fit"] = worst
     out["card_vs_cpu_fit_max"] = max(worst.values())
-    assert out["card_vs_cpu_fit_max"] <= FIT_ATOL, \
-        f"card vs CPU fits: {worst}"
+    out["card_vs_cpu_fit_over_atol"] = sorted(
+        p for p, w in worst.items() if w > FIT_ATOL)
 
     path = os.path.join(ROOT, "build", "profiles", "card_host.json")
     trained.save(path)
@@ -1022,11 +1065,13 @@ def _within(a, b, tol: float) -> bool:
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
 
 
-def _profile(fn, steps: int, watch: str = "") -> dict:
+def _profile(fn, steps: int, watch: str = "", spans=()) -> dict:
     """torch.profiler over ``steps`` calls of ``fn``: device and host time
     per call, the kernels that take the most device time, the host-to-
-    device copies, and the device time of each launch of the kernels
-    whose name holds ``watch``."""
+    device copies, the device time of each launch of the kernels whose
+    name holds ``watch``, and the device time of the kernels launched
+    inside each ``torch.profiler.record_function`` span named in
+    ``spans``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1039,13 +1084,19 @@ def _profile(fn, steps: int, watch: str = "") -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # device work is counted on the kernels' own (CUDA) events only: the
-    # operator events that launched them report the same time again
+    # operator events that launched them report the same time again, and
+    # a span's GPU-side annotation spans its kernels
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in spans]
 
     def dev(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+
+    def dev_total(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
 
     device_us = sum(dev(e) for e in kernels)
     host_us = sum(e.self_cpu_time_total for e in events
@@ -1064,6 +1115,14 @@ def _profile(fn, steps: int, watch: str = "") -> dict:
            "launches_per_step": sum(
                e.count for e in events if e.key == "cudaLaunchKernel") /
            steps}
+    for name in spans:
+        hits = [e for e in events if e.key == name and
+                e.device_type == torch.autograd.DeviceType.CPU]
+        out[f"span_{name}_calls_per_step"] = sum(e.count for e in hits) / steps
+        out[f"span_{name}_device_ms_per_step"] = sum(
+            dev_total(e) for e in hits) / 1e3 / steps
+        out[f"span_{name}_host_ms_per_step"] = sum(
+            e.cpu_time_total for e in hits) / 1e3 / steps
     if watch:
         each = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1195,6 +1254,581 @@ def phase_lm(seed: int) -> dict:
     out["decode_device_busy_share"] = (
         out["profile_decode"]["device_ms_per_step"] /
         (run["decode_s"] * 1e3 / LM_DECODE))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# families: every other model family at its published widths
+# ---------------------------------------------------------------------------
+#: 4 prompts: granite-moe and pixtral prefill 2,048 positions (pixtral:
+#: 256 patches + 1,792 tokens) and decode 32 steps; zamba2 and xlstm
+#: forward 2,048 tokens and serve 64-token prompts by stepping, then 16
+#: decode steps; seamless encodes 1,024 frames and decodes 512 tokens
+FAM_BATCH, FAM_SEQ, FAM_DECODE = 4, 2048, 32
+STEP_PROMPT, STEP_DECODE = 64, 16
+SRC_LEN, TGT_LEN = 1024, 512
+#: the reference's decode-vs-forward tolerance (tests/test_arch_smoke.py)
+DECODE_TOL = 6e-2
+#: bf16 decode's rms distance from float32 decode, at most this times
+#: bf16 forward's from float32 forward (0.97-1.01 in both packages at
+#: full width cut to a few layers, on the CPU:
+#: scripts/bf16_decode_witness.py)
+BF16_DECODE_RATIO = 1.5
+#: the spans the port's models open around their MoE layer and scans
+SPANS = ("moe_ffn", "chunked_linear_scan", "slstm_scan")
+#: xlstm's float32 forward on the host's CPU: the first sequence's tokens
+HOST_TOKENS = 128
+#: sLSTM steps traced (of FAM_SEQ): a step's kernels have the same shapes
+#: at every position, and a trace of all 6 x 2,048 steps' ~250k events
+#: takes minutes to collect
+SLSTM_TRACED_STEPS = 256
+
+
+def _rms(a, b) -> float:
+    return float((a.float() - b.float()).pow(2).mean().sqrt())
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _k5_moved(before, after) -> dict:
+    return {n: after.get(n, 0) - before.get(n, 0) for n in after
+            if n.startswith("flash_attention")}
+
+
+class Checks:
+    """The families phase's checks: each failure is kept, so one run
+    reports every family's numbers, and :meth:`raise_any` fails the
+    phase at its end."""
+
+    def __init__(self) -> None:
+        self.failures = []
+
+    def expect(self, ok: bool, msg: str) -> None:
+        if not ok:
+            self.failures.append(msg)
+            log(f"CHECK FAILED: {msg}")
+
+    def raise_any(self) -> None:
+        assert not self.failures, "; ".join(self.failures)
+
+
+def _against_plain(cfg, fn, checks: Checks) -> dict:
+    """``fn(cfg)`` -> {name: tensor} under flash attention (K5) and the
+    plain chunked path, in float32 and bf16 compute, on the same weights:
+    float32 flash within LM_TOL of float32 plain, and in bf16 the flash
+    path no further (rms, 1.25x) from the float32 plain result than the
+    bf16 plain path is (the lm phase's checks)."""
+    import dataclasses
+    import torch
+    res = {}
+    with torch.no_grad():
+        for impl in ("flash", "xla"):
+            for dtype in ("float32", "bfloat16"):
+                got = fn(dataclasses.replace(cfg, attn_impl=impl,
+                                             compute_dtype=dtype))
+                res[impl, dtype] = {k: v.float() for k, v in got.items()}
+    torch.cuda.synchronize()
+    out = {}
+    for name, want in res["xla", "float32"].items():
+        f32 = res["flash", "float32"][name]
+        row = {"float32_flash_vs_plain_max_abs": _max_abs(f32, want)}
+        for impl in ("flash", "xla"):
+            row[f"bf16_{impl}_vs_float32_rms"] = _rms(
+                res[impl, "bfloat16"][name], want)
+            row[f"bf16_{impl}_vs_float32_max_abs"] = _max_abs(
+                res[impl, "bfloat16"][name], want)
+        checks.expect(_within(f32, want, LM_TOL),
+                      f"{cfg.arch_id} {name}: flash vs plain (float32): "
+                      f"{row}")
+        checks.expect(row["bf16_flash_vs_float32_rms"] <=
+                      1.25 * row["bf16_xla_vs_float32_rms"],
+                      f"{cfg.arch_id} {name}: bf16 flash further from "
+                      f"float32 than the plain path: {row}")
+        out[name] = row
+    return out
+
+
+def _against_host(cfg, params, tokens, served_logits, checks: Checks
+                  ) -> dict:
+    """A model without attention (xLSTM) has no flash/plain pair: its
+    float32 forward on the card against the same forward on the host's
+    CPU (the first sequence, HOST_TOKENS tokens) within LM_TOL.  The
+    served bf16 logits (``served_logits``) against the card's float32
+    ones are recorded, not gated: bf16 rounding alone exceeds LM_TOL's
+    max-abs form already at the smoke config (0.079)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build
+    from repro_torch.models.convert import tree_to
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        card = build(f32).forward(params, tokens)[0].float()
+        host_params = tree_to(params, "cpu")
+        t0 = time.perf_counter()
+        host = build(f32).forward(host_params,
+                                  tokens[:1, :HOST_TOKENS].cpu())[0]
+        host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    part = card[:1, :HOST_TOKENS].cpu()
+    row = {"float32_card_vs_host_max_abs": _max_abs(part, host),
+           "host_tokens": HOST_TOKENS, "host_s": host_s,
+           "bf16_vs_float32_rms": _rms(served_logits, card),
+           "bf16_vs_float32_max_abs": _max_abs(served_logits, card)}
+    checks.expect(_within(part, host, LM_TOL),
+                  f"{cfg.arch_id}: float32 on the card vs the host: {row}")
+    return {"logits": row}
+
+
+def _decode_vs_forward(model, params, prompts, checks: Checks) -> dict:
+    """Step the prompts through the decode closure and hold each step's
+    logits against the full forward's at that position, in float32
+    compute within DECODE_TOL (the reference's check).  In the config's
+    bf16 the two paths round apart by more than that at full width, in
+    the reference too (scripts/bf16_decode_witness.py, PERF.md §6), so
+    bf16 is held by a witness instead: each bf16 path against the same
+    path in float32, the decode no further (rms) than BF16_DECODE_RATIO
+    times the forward.  A fault in the bf16 step path (its casts) would
+    move the decode alone."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build
+    from repro_torch.train.serve import make_serve_step
+    b, s = prompts.shape
+    out = {"positions": s}
+    logits = {}
+    for dtype in ("bfloat16", "float32"):
+        m = build(dataclasses.replace(model.cfg, compute_dtype=dtype))
+        with torch.no_grad():
+            full, _ = m.forward(params, prompts)
+            cache = m.init_cache(b, s, device=DEVICE)
+            step = make_serve_step(m)
+            pos = torch.zeros((b,), dtype=torch.int32, device=DEVICE)
+            steps = []
+            for t in range(s):
+                got, cache = step(params, cache, prompts[:, t], pos)
+                pos = pos + 1
+                steps.append(got.float())
+        logits[dtype] = (full.float(), torch.stack(steps, dim=1))
+        out[f"{dtype}_max_abs"] = _max_abs(*logits[dtype][::-1])
+        out[f"{dtype}_rms"] = _rms(*logits[dtype])
+    (bf, bd), (ff, fd) = logits["bfloat16"], logits["float32"]
+    out["bf16_forward_vs_float32_rms"] = _rms(bf, ff)
+    out["bf16_decode_vs_float32_rms"] = _rms(bd, fd)
+    out["bf16_ratio"] = (out["bf16_decode_vs_float32_rms"] /
+                         out["bf16_forward_vs_float32_rms"])
+    arch = model.cfg.arch_id
+    checks.expect(_within(fd, ff, DECODE_TOL),
+                  f"{arch}: decode vs forward (float32) max abs "
+                  f"{out['float32_max_abs']:.3e}")
+    checks.expect(out["bf16_ratio"] <= BF16_DECODE_RATIO,
+                  f"{arch}: bf16 decode further from float32 than the "
+                  f"bf16 forward: {out}")
+    return out
+
+
+def _served(cfg, params, prompts, new, embeds=None, max_len=None
+            ) -> dict:
+    """``serve_batch`` once to warm, then the counted run: its launches,
+    seconds and tokens."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve_batch
+    serve_batch(cfg, prompts[:, :8], 2, params=params, log=lambda _: None,
+                embeds=None if embeds is None else embeds[:, :8])
+    reset_launch_counts()
+    run = serve_batch(cfg, prompts, new, params=params, embeds=embeds,
+                      max_len=max_len, log=lambda _: None)
+    launches = launch_counts()
+    tokens = run["tokens"]
+    assert tokens.shape == (prompts.shape[0], new), tokens.shape
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+    return {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+            "decode_tok_s": prompts.shape[0] * (new - 1) / run["decode_s"],
+            "k5_launches": _k5_moved({}, launches),
+            "first_tokens": tokens[:, :8].tolist(), "run": run}
+
+
+def _family_granite(seed: int, checks: Checks) -> dict:
+    """granite-moe-1b-a400m at full width and depth: fused prefill of 4 x
+    2,048 tokens (K5, 24 launches) and 32 decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import moe as M
+    from repro_torch.train.serve import make_prefill_step
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              attn_impl="flash")
+    model = build(cfg)
+    params = model.init(seed, device=DEVICE)
+    rng = np.random.default_rng(seed + 11)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (FAM_BATCH, FAM_SEQ)).astype(np.int32)
+    max_len = FAM_SEQ + FAM_DECODE
+    out = _served(cfg, params, prompts, FAM_DECODE + 1, max_len=max_len)
+    run = out.pop("run")
+    k5 = out["k5_launches"]
+    checks.expect(k5.get("flash_attention") == cfg.n_layers and
+                  k5.get("flash_attention_wgmma") == cfg.n_layers,
+                  f"granite-moe prefill K5 launches {k5}")
+    checks.expect(bool(torch.isfinite(run["prefill_logits"].float()).all()),
+                  "granite-moe prefill logits not finite")
+    prompt_t = torch.as_tensor(prompts, device=DEVICE)
+
+    def last_logits(c):
+        logits, _ = make_prefill_step(build(c), max_len)(params, prompt_t)
+        return {"logits": logits}
+
+    t0 = time.perf_counter()
+    out["vs_plain"] = _against_plain(cfg, last_logits, checks)
+    out["vs_plain_s"] = time.perf_counter() - t0
+    # tokens dropped by capacity in one prefill (each MoE layer's routing
+    # counted again beside the call)
+    stats = {"assigned": 0, "dropped": 0}
+    plain_ffn = M.moe_ffn
+
+    def counted(p, x, c):
+        r = M.route(p, x.reshape(-1, x.shape[-1]), c)
+        stats["assigned"] += int(r["mask"].sum())
+        stats["dropped"] += M.dropped(r)
+        return plain_ffn(p, x, c)
+
+    M.moe_ffn = counted
+    try:
+        with torch.no_grad():
+            make_prefill_step(model, max_len)(params, prompt_t)
+    finally:
+        M.moe_ffn = plain_ffn
+    out["capacity"] = M.capacity(FAM_BATCH * FAM_SEQ, cfg)
+    out["assignments"] = stats["assigned"]
+    out["dropped_assignments"] = stats["dropped"]
+    prefill = make_prefill_step(model, max_len)
+    with torch.no_grad():
+        out["profile_prefill"] = _profile(lambda: prefill(params, prompt_t),
+                                          1, watch="flash", spans=SPANS)
+    return out
+
+
+def _family_scan(arch: str, seed: int, checks: Checks) -> dict:
+    """zamba2-1.2b or xlstm-350m at full width and depth: forward on 4 x
+    2,048 tokens (zamba2: K5 on its 7 shared-attention applications),
+    held against the plain path (xlstm: bf16 against float32); the
+    launcher on 4 prompts of 64 tokens, stepped, and 16 decode steps;
+    decode against forward over those 64 positions."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build
+    from repro_torch.models.hybrid import n_shared_applications
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    model = build(cfg)
+    params = model.init(seed, device=DEVICE)
+    rng = np.random.default_rng(seed + 12)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (FAM_BATCH, FAM_SEQ)).astype(np.int32),
+        device=DEVICE)
+    with torch.no_grad():
+        model.forward(params, tokens[:, :16])             # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    k5 = _k5_moved({}, launch_counts())
+    attention = cfg.family == "hybrid"
+    want = n_shared_applications(cfg) if attention else 0
+    checks.expect(k5.get("flash_attention", 0) == want and
+                  k5.get("flash_attention_wgmma", 0) == want,
+                  f"{arch} forward K5 launches {k5}, expected {want}")
+    checks.expect(bool(torch.isfinite(logits.float()).all()),
+                  f"{arch} forward logits not finite")
+    out = {"forward_s": forward_s,
+           "forward_tok_s": FAM_BATCH * FAM_SEQ / forward_s,
+           "forward_k5_launches": k5}
+
+    def full_logits(c):
+        return {"logits": build(c).forward(params, tokens)[0]}
+
+    t0 = time.perf_counter()
+    if attention:
+        del logits
+        out["vs_plain"] = _against_plain(cfg, full_logits, checks)
+    else:
+        out["vs_plain"] = _against_host(cfg, params, tokens, logits.float(),
+                                        checks)
+        del logits
+    out["vs_plain_s"] = time.perf_counter() - t0
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (FAM_BATCH, STEP_PROMPT)).astype(np.int32)
+    served = _served(cfg, params, prompts, STEP_DECODE + 1)
+    served.pop("run")
+    out["served"] = served
+    t0 = time.perf_counter()
+    out["decode_vs_forward"] = _decode_vs_forward(
+        model, params, torch.as_tensor(prompts, device=DEVICE), checks)
+    out["decode_vs_forward_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if attention:
+            out["profile_forward"] = _profile(
+                lambda: model.forward(params, tokens, hidden=True), 1,
+                watch="flash", spans=SPANS)
+        else:
+            out.update(_xlstm_blocks(cfg, params, tokens))
+    out["profile_s"] = time.perf_counter() - t0
+    return out
+
+
+def _xlstm_blocks(cfg, params, tokens) -> dict:
+    """One sLSTM block timed at full length on the host clock; one trace
+    of an mLSTM block at full length (its chunked scan's span) and of the
+    sLSTM block over its first SLSTM_TRACED_STEPS steps (its loop's span
+    per step)."""
+    import torch
+    from repro_torch.models import ssm as S
+    from repro_torch.models import layers as L
+    x = L.embed(params["embed"], tokens, cfg)
+    kinds = [b for b in params["blocks"] if "slstm" in b]
+    mlstm = next(b for b in params["blocks"] if "mlstm" in b)["mlstm"]
+    slstm = kinds[0]["slstm"]
+    out = {"mlstm_blocks": len(params["blocks"]) - len(kinds),
+           "slstm_blocks": len(kinds)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S.slstm_forward(slstm, x, cfg)
+    torch.cuda.synchronize()
+    out["slstm_block_s"] = time.perf_counter() - t0
+    short = x[:, :SLSTM_TRACED_STEPS]
+
+    def blocks():
+        S.mlstm_forward(mlstm, x, cfg)
+        S.slstm_forward(slstm, short, cfg)
+
+    prof = _profile(blocks, 1, spans=SPANS)
+    out["profile_blocks"] = prof
+    out["profile_slstm_steps"] = SLSTM_TRACED_STEPS
+    out["slstm_device_ms_per_step"] = (
+        prof["span_slstm_scan_device_ms_per_step"] / SLSTM_TRACED_STEPS)
+    out["slstm_host_ms_per_step"] = (
+        prof["span_slstm_scan_host_ms_per_step"] / SLSTM_TRACED_STEPS)
+    out["mlstm_scan_device_ms_per_block"] = prof[
+        "span_chunked_linear_scan_device_ms_per_step"]
+    return out
+
+
+def _family_seamless(seed: int, checks: Checks) -> dict:
+    """seamless-m4t-large-v2 at full width and depth: encode 4 x 1,024
+    frames (K5 non-causal), forward 4 x 512 target tokens (K5 causal and
+    cross-attention with Sq 512, Skv 1,024), prefill_cross and 16 decode
+    steps, each held against the plain path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build, encdec
+    from repro_torch.models import layers as L
+    from repro_torch.train.serve import greedy_sample, make_serve_step
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              attn_impl="flash")
+    model = build(cfg)
+    params = model.init(seed, device=DEVICE)
+    rng = np.random.default_rng(seed + 13)
+    src = torch.as_tensor(rng.standard_normal(
+        (FAM_BATCH, SRC_LEN, cfg.d_model)).astype(np.float32), device=DEVICE)
+    tgt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (FAM_BATCH, TGT_LEN)).astype(np.int32),
+        device=DEVICE)
+    n = cfg.n_layers
+    out = {}
+    with torch.no_grad():
+        model.forward(params, tgt[:, :64], embeds=src[:, :128], hidden=True)
+        torch.cuda.synchronize()
+        for name, fn, want in (
+                ("encode", lambda: encdec.encode(params, src, cfg),
+                 cfg.n_encoder_layers),
+                ("forward", lambda: model.forward(params, tgt, embeds=src,
+                                                  hidden=True),
+                 cfg.n_encoder_layers + 2 * n)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[f"{name}_s"] = time.perf_counter() - t0
+            k5 = _k5_moved({}, launch_counts())
+            out[f"{name}_k5_launches"] = k5
+            checks.expect(k5.get("flash_attention") == want and
+                          k5.get("flash_attention_wgmma") == want,
+                          f"seamless {name} K5 launches {k5}, expected "
+                          f"{want}")
+
+    def outputs(c):
+        hid, _ = build(c).forward(params, tgt, embeds=src, hidden=True)
+        return {"encoder": encdec.encode(params, src, c),
+                "last_logits": L.unembed(params["embed"], hid[:, -1:], c)}
+
+    t0 = time.perf_counter()
+    out["vs_plain"] = _against_plain(cfg, outputs, checks)
+    out["vs_plain_s"] = time.perf_counter() - t0
+    # served: prefill_cross on K5 (bf16), then 16 greedy decode steps
+    step = make_serve_step(model)
+    with torch.no_grad():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cache = encdec.prefill_cross(
+            params, src, cfg, encdec.init_cache(cfg, FAM_BATCH,
+                                                STEP_DECODE + 1,
+                                                src_len=SRC_LEN,
+                                                device=DEVICE))
+        torch.cuda.synchronize()
+        out["prefill_cross_s"] = time.perf_counter() - t0
+        k5 = _k5_moved({}, launch_counts())
+        out["prefill_cross_k5_launches"] = k5
+        checks.expect(k5.get("flash_attention") == cfg.n_encoder_layers and
+                      k5.get("flash_attention_wgmma") ==
+                      cfg.n_encoder_layers,
+                      f"seamless prefill_cross K5 launches {k5}")
+        token = tgt[:, 0]
+        t0 = time.perf_counter()
+        for t in range(STEP_DECODE):
+            pos = torch.full((FAM_BATCH,), t, dtype=torch.int32,
+                             device=DEVICE)
+            logits, cache = step(params, cache, token, pos)
+            token = greedy_sample(logits)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+        out["decode_tok_s"] = FAM_BATCH * STEP_DECODE / out["decode_s"]
+        checks.expect(bool(torch.isfinite(logits.float()).all()),
+                      "seamless decode logits not finite")
+        out["profile_forward"] = _profile(
+            lambda: model.forward(params, tgt, embeds=src, hidden=True), 1,
+            watch="flash")
+        del cache
+        # the same 16 steps in float32 from the flash path's cross cache
+        # and from the plain path's, each step's logits against the other
+        caches = {}
+        for impl in ("flash", "xla"):
+            c = dataclasses.replace(cfg, attn_impl=impl,
+                                    compute_dtype="float32")
+            caches[impl] = encdec.prefill_cross(
+                params, src, c, encdec.init_cache(c, FAM_BATCH,
+                                                  STEP_DECODE + 1,
+                                                  src_len=SRC_LEN,
+                                                  device=DEVICE))
+        out["prefill_cross_vs_plain_max_abs"] = {
+            name: _max_abs(caches["flash"][name], caches["xla"][name])
+            for name in ("xk", "xv")}
+        for name in ("xk", "xv"):
+            checks.expect(_within(caches["flash"][name], caches["xla"][name],
+                                  LM_TOL),
+                          f"seamless prefill_cross {name} vs plain "
+                          f"(float32): {out['prefill_cross_vs_plain_max_abs']}")
+        step32 = make_serve_step(build(dataclasses.replace(
+            cfg, compute_dtype="float32")))
+        token = tgt[:, 0]
+        worst, ok = 0.0, True
+        for t in range(STEP_DECODE):
+            pos = torch.full((FAM_BATCH,), t, dtype=torch.int32,
+                             device=DEVICE)
+            logits, caches["flash"] = step32(params, caches["flash"], token,
+                                             pos)
+            plain, caches["xla"] = step32(params, caches["xla"], token, pos)
+            worst = max(worst, _max_abs(logits, plain))
+            ok = ok and _within(logits, plain, LM_TOL)
+            token = greedy_sample(plain)
+        out["decode_vs_plain_max_abs"] = worst
+        checks.expect(ok, f"seamless decode (float32) from the flash cache "
+                          f"vs the plain one: max abs {worst:.3e}")
+    return out
+
+
+def _family_pixtral(seed: int, checks: Checks) -> dict:
+    """pixtral-12b at full width and depth (bf16 parameters): 256 patch
+    embeddings + 1,792 tokens, x 4, through the fused prefill (K5's SIMT
+    variant, D 160, 40 launches) and 32 decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train.serve import make_prefill_step
+    cfg = dataclasses.replace(get_config("pixtral-12b"), attn_impl="flash")
+    model = build(cfg)
+    params = model.init(seed, device=DEVICE)
+    rng = np.random.default_rng(seed + 14)
+    p = cfg.n_patches
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (FAM_BATCH, FAM_SEQ - p)).astype(np.int32)
+    patches = torch.as_tensor(rng.standard_normal(
+        (FAM_BATCH, p, cfg.d_model)).astype(np.float32), device=DEVICE)
+    max_len = FAM_SEQ + FAM_DECODE
+    out = _served(cfg, params, prompts, FAM_DECODE + 1, embeds=patches,
+                  max_len=max_len)
+    run = out.pop("run")
+    k5 = out["k5_launches"]
+    checks.expect(k5.get("flash_attention") == cfg.n_layers and
+                  k5.get("flash_attention_simt") == cfg.n_layers,
+                  f"pixtral prefill K5 launches {k5}")
+    checks.expect(bool(torch.isfinite(run["prefill_logits"].float()).all()),
+                  "pixtral prefill logits not finite")
+    prompt_t = torch.as_tensor(prompts, device=DEVICE)
+
+    def last_logits(c):
+        logits, _ = make_prefill_step(build(c), max_len)(params, prompt_t,
+                                                         patches)
+        return {"logits": logits}
+
+    t0 = time.perf_counter()
+    out["vs_plain"] = _against_plain(cfg, last_logits, checks)
+    out["vs_plain_s"] = time.perf_counter() - t0
+    prefill = make_prefill_step(model, max_len)
+    with torch.no_grad():
+        out["profile_prefill"] = _profile(
+            lambda: prefill(params, prompt_t, patches), 1,
+            watch="flash")
+    return out
+
+
+def phase_families(seed: int) -> dict:
+    """Each family at its published widths, one model at a time, its
+    memory freed before the next; peak memory per model.  Every check
+    of every model runs before the phase fails on any."""
+    import functools
+    import torch
+    from repro_torch.configs import get_config
+    checks = Checks()
+    out = {}
+    for name, fn in (("granite-moe-1b-a400m", _family_granite),
+                     ("zamba2-1.2b", functools.partial(_family_scan,
+                                                       "zamba2-1.2b")),
+                     ("xlstm-350m", functools.partial(_family_scan,
+                                                      "xlstm-350m")),
+                     ("seamless-m4t-large-v2", _family_seamless),
+                     ("pixtral-12b", _family_pixtral)):
+        _free()
+        t0 = time.perf_counter()
+        res = fn(seed, checks)
+        torch.cuda.synchronize()
+        cfg = get_config(name)
+        res.update({"phase_s": time.perf_counter() - t0,
+                    "peak_gb": _peak_gb(), "layers": cfg.n_layers,
+                    "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                    "params_b": cfg.n_params() / 1e9})
+        out[name] = res
+        log(f"families {name}: " + json.dumps(res))
+    _free()
+    out["failures"] = checks.failures
+    checks.raise_any()
     return out
 
 
@@ -1561,9 +2195,16 @@ def k4_op_times(w_t, lq_t) -> dict:
         op()
     torch.cuda.synchronize()
     host_us = (time.perf_counter() - t0) / 100 * 1e6
-    # 10 calls traced: a lone 3-microsecond kernel can miss a trace of one
-    trace = _profile(op, 10)
-    return {"op_ms": device_ms, "op_host_us_per_call": host_us,
+    # 10 calls traced: a lone 3-microsecond kernel can miss a trace of
+    # one, and now and then the profiler hands back a trace with no
+    # device event at all (the counters still saw every launch): that
+    # trace is taken again, at most twice
+    for attempt in range(1, 4):
+        trace = _profile(op, 10)
+        if trace["device_events_per_step"] > 0:
+            break
+    return {"op_trace_attempts": attempt,
+            "op_ms": device_ms, "op_host_us_per_call": host_us,
             "op_device_kernels": trace["device_events_per_step"],
             "op_kernel_names": list(trace["top_kernels_ms_per_step"]),
             "op_traced_device_ms": trace["device_ms_per_step"]}
@@ -1654,6 +2295,71 @@ def _k5_inputs(gen, b, h, kh, sq, skv, d, dtype):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
+#: K5 at each family's shapes (bf16, the full configs): name, B, H, KH,
+#: Sq, Skv, D, causal
+K5_FAMILY_SHAPES = [
+    ("granite-moe prefill", 4, 16, 8, 2048, 2048, 64, True),
+    ("zamba2 shared attention", 4, 32, 32, 2048, 2048, 64, True),
+    ("seamless encoder", 4, 16, 16, 1024, 1024, 64, False),
+    ("seamless decoder self", 4, 16, 16, 512, 512, 64, True),
+    ("seamless cross", 4, 16, 16, 512, 1024, 64, False),
+    ("pixtral prefill", 4, 32, 8, 2048, 2048, 160, True),
+]
+
+
+def k5_family_cases(gen) -> list:
+    """K5 against its plain version at each family's shape: error, time,
+    bound (4 B H D x the pairs the mask keeps, at the peak of the inputs'
+    type: bf16 on the tensor cores, whichever variant runs), the plain
+    version's time and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rows = []
+    for name, b, h, kh, sq, skv, d, causal in K5_FAMILY_SHAPES:
+        q, k, v = _k5_inputs(gen, b, h, kh, sq, skv, d, torch.bfloat16)
+        kind = kernel.variant(q.dtype, d)
+        before = launch_counts()
+        got = kernel.flash_attention_kernel(q, k, v, causal).float()
+        moved = _k5_moved(before, launch_counts())
+        assert moved.get("flash_attention") == 1 and \
+            moved.get(f"flash_attention_{kind}") == 1, (name, moved)
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        err = (got - want).abs()
+        max_err = float(err.max())
+        assert bool((err <= 1e-4 + 2.0 ** -8 * want.abs()).all()), \
+            f"K5 ({kind}) vs plain at {name}: max abs {max_err:.3e}"
+        del got, want, err
+        ms = timed_ms(lambda: kernel.flash_attention_kernel(q, k, v, causal),
+                      reps=10)
+        plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=causal),
+                            reps=3, warmup=1)
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        try:
+            library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=causal, enable_gqa=True), reps=10)
+        except RuntimeError as exc:       # no SDPA backend for the shape
+            library_ms = None
+            log(f"K5 {name}: SDPA refused the shape: {exc}")
+        pairs = _causal_pairs(sq, skv) if causal else sq * skv
+        n_ops = 4 * b * h * d * pairs
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        peak = "bf16_tensor" if q.dtype == torch.bfloat16 else "fp32"
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAKS[peak] * 1e3
+        rows.append({"shape": name, "b": b, "heads": f"{h}/{kh}", "sq": sq,
+                     "skv": skv, "d": d, "causal": causal, "variant": kind,
+                     "max_abs_err": max_err,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "ops_peak": peak, "tflops": n_ops / (ms * 1e-3) / 1e12})
+        del q, k, v, qc, kc, vc
+    return rows
+
+
 def kernel_k5(seed, launches) -> dict:
     import torch
     import torch.nn.functional as F
@@ -1741,6 +2447,7 @@ def kernel_k5(seed, launches) -> dict:
                  "tensor_tflops_done": 1.5 * n_ops / (ms * 1e-3) / 1e12,
                  **kernel.wgmma_info(d),
                  "simt_float32_ms": simt_ms,
+                 "family_shapes": k5_family_cases(gen),
                  "simt_float32_shape": f"[{b},{h},{sq},{d}] float32 causal",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True, enable_gqa=True)"})
@@ -1924,6 +2631,28 @@ def main(argv=None) -> int:
             f"({ps['designs_per_s']:.0f}/s), {ps['k0_launches']} K0 "
             f"launches; beam {ps['beam_cost_s']:.6e} s")
     log("search: " + json.dumps(sr))
+
+    t0 = time.perf_counter()
+    report["families"] = phase_families(args.seed)
+    report["families_phase_s"] = time.perf_counter() - t0
+    fam = report["families"]
+    for name, res in fam.items():
+        if name == "failures":
+            continue
+        log(f"families {name}: " + ", ".join(
+            f"{k} {res[k]:.4f}" for k in ("prefill_s", "forward_s",
+                                          "encode_s", "decode_tok_s",
+                                          "peak_gb", "phase_s")
+            if isinstance(res.get(k), float)))
+    seamless = fam["seamless-m4t-large-v2"]
+    kernels[5]["launches_by_path"] = {
+        "lm qwen2-1.5b prefill": kernels[5]["launches"],
+        "granite-moe prefill": fam["granite-moe-1b-a400m"]["k5_launches"],
+        "zamba2 forward": fam["zamba2-1.2b"]["forward_k5_launches"],
+        "seamless encode": seamless["encode_k5_launches"],
+        "seamless forward": seamless["forward_k5_launches"],
+        "seamless prefill_cross": seamless["prefill_cross_k5_launches"],
+        "pixtral prefill": fam["pixtral-12b"]["k5_launches"]}
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

@@ -248,31 +248,118 @@ def _bias_corrections(steps: int, dev: torch.device
     return 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
 
 
+def _adam_update(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, lower: torch.Tensor, lr: float,
+                 bc1: torch.Tensor, bc2: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projected Adam's update, the reference's term for term:
+    ``p - lr * (m / bc1) / (sqrt(v / bc2) + 1e-8)``, then
+    ``max(p, lower)``."""
+    m = 0.9 * m + 0.1 * g
+    v = 0.999 * v + 0.001 * g * g
+    p = torch.maximum(
+        p - lr * (m / bc1) / (torch.sqrt(v / bc2) + 1e-8), lower)
+    return p, m, v
+
+
+def _grad(loss_fn: Callable[[torch.Tensor], torch.Tensor],
+          p: torch.Tensor) -> torch.Tensor:
+    p = p.detach().requires_grad_(True)
+    return torch.autograd.grad(loss_fn(p), p)[0]
+
+
 def _adam(loss_fn: Callable[[torch.Tensor], torch.Tensor],
           params: torch.Tensor, lower: torch.Tensor, lr: float,
-          steps: int) -> torch.Tensor:
-    """``steps`` of Adam on the flat float32 vector ``params``, each
-    followed by ``max(params, lower)`` (the projection), with no host
-    sync.  The update is the reference's term for term:
-    ``p - lr * (m / bc1) / (sqrt(v / bc2) + 1e-8)``."""
+          steps: int, record: Optional[dict] = None) -> torch.Tensor:
+    """``steps`` of projected Adam on the flat float32 vector ``params``,
+    with no host sync.  A ``record`` dict receives, for
+    :func:`replay_gap`, every step's state ``(p, m, v)`` and gradient
+    ``g`` (tensors the loop makes anyway), the state after the last
+    step, ``lower`` and ``lr``."""
     bc1, bc2 = _bias_corrections(steps, params.device)
     m = torch.zeros_like(params)
     v = torch.zeros_like(params)
     p = params.detach()
+    states, grads = [], []
     for i in range(steps):
-        p = p.requires_grad_(True)
-        (g,) = torch.autograd.grad(loss_fn(p), p)
+        g = _grad(loss_fn, p)
+        if record is not None:
+            states.append((p, m, v))
+            grads.append(g)
         with torch.no_grad():
-            m = 0.9 * m + 0.1 * g
-            v = 0.999 * v + 0.001 * g * g
-            p = torch.maximum(
-                p - lr * (m / bc1[i]) / (torch.sqrt(v / bc2[i]) + 1e-8),
-                lower)
+            p, m, v = _adam_update(g, p, m, v, lower, lr, bc1[i], bc2[i])
+    if record is not None:
+        states.append((p, m, v))
+        record.update(states=states, grads=grads, lower=lower, lr=lr)
     return p.detach()
 
 
+def replay_gap(record: dict, device: Optional[runtime.DeviceLike] = None
+               ) -> Dict[str, float]:
+    """Replay a recorded fit (``fit(..., record=...)``) on ``device``,
+    every step from the recorded state before it:
+
+    - ``grad``: the loss's gradient at each recorded ``p`` against the
+      recorded gradient, over the largest recorded gradient entry (the
+      early steps': late in a fit, where the gradient sums cancel, a
+      step's rounding is a large share of its own gradient);
+    - ``update``: Adam's update from the recorded state and gradient
+      against the recorded state after the step, each of ``p, m, v``
+      over the size of the terms that make it (``|p| + lr``,
+      ``0.9 |m| + 0.1 |g|``, ``0.999 v + 0.001 g^2``: where they cancel,
+      a result near 0 keeps the terms' rounding): a few ulps across
+      devices, whose division and square root round alike but not
+      always the same.
+
+    Constant-lr Adam never settles: its last steps wander around the
+    minimum and small gradients are scaled up to full steps, so two fits
+    of the same data that round differently (two devices, or data one
+    ulp apart) drift apart over the fit, up to
+    ~1e-2 of max |y| in the predictions.  A replay restarts every step
+    from the record, so nothing compounds: a device that fits correctly
+    replays its gradients and updates to rounding, and one that computes
+    any step wrongly (gradient, moments, bias correction or projection)
+    shows that step's error."""
+    dev = runtime.device(device)
+    make_loss, args = record["loss"]
+    loss_fn = make_loss(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                          for a in args))
+    lower = record["lower"].to(dev)
+    p, m, v = (torch.stack([s[j].detach() for s in record["states"]]).to(dev)
+               for j in range(3))
+    g = torch.stack(record["grads"]).to(dev)
+    steps = g.shape[0]
+    bc1, bc2 = _bias_corrections(steps, dev)
+    mine = torch.stack([_grad(loss_fn, p[i]) for i in range(steps)])
+    scale = torch.clamp(torch.amax(torch.abs(g)), min=_EPS)
+    lr = record["lr"]
+    with torch.no_grad():
+        nxt = _adam_update(g, p[:-1], m[:-1], v[:-1], lower, lr,
+                           bc1[:, None], bc2[:, None])
+    terms = (torch.abs(p[:-1]) + lr,
+             0.9 * torch.abs(m[:-1]) + 0.1 * torch.abs(g),
+             0.999 * v[:-1] + 0.001 * g * g)
+    update = max(float(torch.amax(torch.abs(got - want) /
+                                  torch.clamp(size, min=_EPS)))
+                 for got, want, size in zip(nxt, (p[1:], m[1:], v[1:]),
+                                            terms))
+    return {"grad": float(torch.amax(torch.abs(mine - g)) / scale),
+            "update": update}
+
+
+def _nnls_loss(phi_n: torch.Tensor, y_n: torch.Tensor):
+    n_w = phi_n.shape[-1]
+
+    def loss_fn(p: torch.Tensor) -> torch.Tensor:
+        r = phi_n @ p[:n_w] + p[n_w] - y_n
+        return torch.mean(r * r)
+
+    return loss_fn
+
+
 def _fit_nnls(x: torch.Tensor, y: torch.Tensor, basis: str,
-              steps: int = 2000) -> Tuple[torch.Tensor, torch.Tensor]:
+              steps: int = 2000, record: Optional[dict] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Non-negative least squares via projected Adam, ridge warm start.
 
     ``w`` and ``y0`` travel as one vector ``[w..., y0]``, both projected
@@ -290,13 +377,11 @@ def _fit_nnls(x: torch.Tensor, y: torch.Tensor, basis: str,
     w = torch.clamp(torch.linalg.solve_ex(a, b)[0], min=0.0)
     y0 = torch.clamp(torch.mean(y_n - phi_n @ w), min=0.0)
 
-    def loss_fn(p: torch.Tensor) -> torch.Tensor:
-        r = phi_n @ p[:n_w] + p[n_w] - y_n
-        return torch.mean(r * r)
-
-    p = _adam(loss_fn, torch.cat([w, y0[None]]),
+    if record is not None:
+        record["loss"] = (_nnls_loss, (phi_n, y_n))
+    p = _adam(_nnls_loss(phi_n, y_n), torch.cat([w, y0[None]]),
               torch.zeros(n_w + 1, dtype=torch.float32, device=x.device),
-              3e-3, steps)
+              3e-3, steps, record)
     return p[:n_w] * (yscale / scale), p[n_w] * yscale
 
 
@@ -327,9 +412,20 @@ def _sigmoid_init(logx: np.ndarray, y: np.ndarray, k: int) -> Dict[str, np.ndarr
     }
 
 
+def _sigmoid_loss(logx: torch.Tensor, y_n: torch.Tensor, k: int):
+    def loss_fn(p: torch.Tensor) -> torch.Tensor:
+        z = torch.sigmoid(p[k:2 * k][None, :] *
+                          (logx[:, None] - p[2 * k:3 * k][None, :]))
+        pred = z @ p[:k] + p[3 * k]
+        return torch.mean((pred - y_n) ** 2)
+
+    return loss_fn
+
+
 def _fit_sigmoids_gd(logx: torch.Tensor, y: torch.Tensor,
                      init: Dict[str, torch.Tensor],
-                     steps: int = 4000) -> Dict[str, torch.Tensor]:
+                     steps: int = 4000, record: Optional[dict] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Adam on ``sum_i c_i sigmoid(k_i (logx - x0_i)) + y0`` against the
     standardized ``y``; amplitudes stay >= 0 and slopes >= 1e-3
     (monotone step functions).  The parameters travel as one vector
@@ -343,13 +439,9 @@ def _fit_sigmoids_gd(logx: torch.Tensor, y: torch.Tensor,
     lower[:k] = 0.0
     lower[k:2 * k] = 1e-3
 
-    def loss_fn(p: torch.Tensor) -> torch.Tensor:
-        z = torch.sigmoid(p[k:2 * k][None, :] *
-                          (logx[:, None] - p[2 * k:3 * k][None, :]))
-        pred = z @ p[:k] + p[3 * k]
-        return torch.mean((pred - y_n) ** 2)
-
-    p = _adam(loss_fn, flat, lower, 2e-2, steps)
+    if record is not None:
+        record["loss"] = (_sigmoid_loss, (logx, y_n, k))
+    p = _adam(_sigmoid_loss(logx, y_n, k), flat, lower, 2e-2, steps, record)
     return {"c": p[:k] * yscale, "k": p[k:2 * k], "x0": p[2 * k:3 * k],
             "y0": p[3 * k] * yscale}
 
@@ -359,18 +451,22 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def fit(kind: str, x: np.ndarray, y: np.ndarray, num_sigmoids: int = 3,
-        device: Optional[runtime.DeviceLike] = None) -> FittedModel:
+        device: Optional[runtime.DeviceLike] = None,
+        record: Optional[dict] = None) -> FittedModel:
     """Fit one cost model of the given kind to benchmark data (x, y).
 
     The loops run on ``device`` (the runtime device by default); the
-    returned parameters are numpy float32, as the reference's."""
+    returned parameters are numpy float32, as the reference's.  A
+    ``record`` dict receives an Adam fit's loss and trajectory, for
+    :func:`replay_gap` (k-NN fits nothing and records nothing)."""
     x = np.asarray(x, dtype=np.float32)
     y = np.asarray(y, dtype=np.float32)
     x_range = (float(x.min()), float(x.max()))
     if kind in _BASES:
         dev = runtime.device(device)
         w, y0 = _fit_nnls(torch.as_tensor(x, device=dev),
-                          torch.as_tensor(y, device=dev), kind)
+                          torch.as_tensor(y, device=dev), kind,
+                          record=record)
         return FittedModel(kind, {"w": _numpy(w), "y0": _numpy(y0)},
                            x_range)
     if kind == "sigmoids":
@@ -379,7 +475,8 @@ def fit(kind: str, x: np.ndarray, y: np.ndarray, num_sigmoids: int = 3,
         init = _sigmoid_init(logx, y, num_sigmoids)
         params = _fit_sigmoids_gd(
             torch.as_tensor(logx, device=dev), torch.as_tensor(y, device=dev),
-            {k: torch.as_tensor(v, device=dev) for k, v in init.items()})
+            {k: torch.as_tensor(v, device=dev) for k, v in init.items()},
+            record=record)
         return FittedModel(kind, {k: _numpy(v) for k, v in params.items()},
                            x_range)
     if kind == "knn":

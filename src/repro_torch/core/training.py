@@ -41,14 +41,17 @@ def train_profile(name: str = "HW-container",
                   max_size: Optional[int] = None,
                   device: Optional[runtime.DeviceLike] = None,
                   measurements: Optional[Dict[str, Tuple[np.ndarray,
-                                                         np.ndarray]]] = None
+                                                         np.ndarray]]] = None,
+                  records: Optional[Dict[str, dict]] = None
                   ) -> HardwareProfile:
     """Train all (or selected) Level-2 primitives on this machine, the
     fits on ``device`` (the runtime device by default).  Besides the
     reference's constants (``training_seconds``, ``r2_<primitive>``) the
     profile records each fit's seconds (``fit_seconds_<primitive>``) and
     their sum (``fitting_seconds``).  A ``measurements`` dict, if given,
-    receives each primitive's measured ``(x, y)``."""
+    receives each primitive's measured ``(x, y)``; a ``records`` dict
+    each fit's Adam trajectory (``models.fit(..., record=)``, for
+    ``models.replay_gap``)."""
     dev = runtime.device(device)
     models: Dict[str, FittedModel] = {}
     fit_quality: Dict[str, float] = {}
@@ -62,7 +65,9 @@ def train_profile(name: str = "HW-container",
         if measurements is not None:
             measurements[pname] = (x, y)
         t_fit = time.perf_counter()
-        model = fit(prim.model_kind, x, y, device=dev)   # synchronizes
+        record = None if records is None else records.setdefault(pname, {})
+        model = fit(prim.model_kind, x, y, device=dev,   # synchronizes
+                    record=record)
         fit_seconds[pname] = time.perf_counter() - t_fit
         pred = model.predict(x, dev)
         fit_quality[pname] = r2_score(y, pred)

@@ -1,17 +1,20 @@
 """Serving launcher: a batch of requests through prefill and greedy decode
 on one GPU (the port of ``repro/launch/serve.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
-        --smoke --requests 8 --prompt-len 16 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch <id> \\
+        [--smoke] [--device cpu] --requests 8 --prompt-len 16 --max-new 16
 
-One card, no mesh.  Weights are drawn from a seeded ``torch.Generator`` on
-the device: JAX's ``PRNGKey(0)`` stream cannot be replayed in PyTorch, so
-these are not the reference's weights (pass ``params``, e.g. from
+Any of the ten architectures of ``repro_torch.configs``.  One card, no
+mesh.  Weights are drawn from a seeded ``torch.Generator`` on the device:
+JAX's ``PRNGKey(0)`` stream cannot be replayed in PyTorch, so these are
+not the reference's weights (pass ``params``, e.g. from
 :func:`repro_torch.models.convert.params_from_reference`, to serve given
-ones).  Where the reference prefills by stepping the decode closure over
-the prompt (which works for every family), this launcher runs the fused
-prefill of the dense family, the only one ported, which is the path
-that runs kernel K5.
+ones).  The transformer families (dense, moe, vlm) prefill with their
+fused prefill, the path that runs kernel K5 under ``attn_impl="flash"``;
+the others (hybrid, ssm, audio) prefill by stepping the decode closure
+over the prompt, as the reference does for every family — the
+encoder-decoder against an all-zero cross-attention cache of 8 source
+positions, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,8 +28,7 @@ import torch
 from repro_torch import runtime
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import build
-from repro_torch.train.serve import (greedy_sample, make_prefill_step,
-                                     make_serve_step)
+from repro_torch.train.serve import greedy_sample, make_serve_step, prefill
 
 
 def _sync(dev: torch.device) -> None:
@@ -34,35 +36,47 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+#: source positions of the encoder-decoder's (all-zero) cross-attention
+#: cache when it is served by stepping, as in the reference
+AUDIO_SRC_LEN = 8
+
+
 @torch.no_grad()
 def serve_batch(cfg, prompts: np.ndarray, max_new: int, *,
                 params=None, seed: int = 0, device=None,
-                max_len: Optional[int] = None, log=print) -> Dict[str, Any]:
+                max_len: Optional[int] = None, embeds=None,
+                log=print) -> Dict[str, Any]:
     """Serve ``prompts`` [B, S]: prefill, then ``max_new - 1`` greedy
     decode steps, ``max_new`` new tokens per request.
 
     Runs on :func:`repro_torch.runtime.device` (``device`` overrides);
-    ``max_len`` (default ``S + max_new``) sizes the KV cache.  Returns the
-    tokens [B, max_new] as numpy, the prefill's last-token logits, the
-    prefill and decode seconds (host clock, synchronised) and the decode
-    throughput."""
+    ``max_len`` (default ``P + S + max_new``) sizes the KV cache.  A VLM
+    takes ``embeds`` [B, P, D], its patch embeddings, placed before the
+    tokens (P = 0 without).  Returns the tokens [B, max_new] as numpy, the
+    prefill's last-token logits, the prefill and decode seconds (host
+    clock, synchronised) and the decode throughput."""
     dev = runtime.device(device)
     model = build(cfg)
     b, s = prompts.shape
-    max_len = max_len or (s + max_new)
+    n_embeds = 0 if embeds is None else embeds.shape[1]
+    max_len = max_len or (n_embeds + s + max_new)
     if params is None:
         params = model.init(seed, device=dev)
     prompt = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
     decode = make_serve_step(model)
 
+    if embeds is not None:
+        embeds = torch.as_tensor(embeds, device=dev)
+    kw = {"src_len": AUDIO_SRC_LEN} if cfg.family == "audio" else {}
+
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = make_prefill_step(model, max_len)(params, prompt)
+    logits, cache = prefill(model, params, prompt, max_len, embeds, **kw)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits
 
-    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    pos = torch.full((b,), n_embeds + s, dtype=torch.int32, device=dev)
     token = greedy_sample(logits)
     out = [token]
     t0 = time.perf_counter()

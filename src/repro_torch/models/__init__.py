@@ -1,4 +1,4 @@
-"""The LM model stack of the port (dense family so far)."""
+"""The LM model stack of the port: every family of the reference."""
 from repro_torch.models.registry import Model, build
 
 __all__ = ["Model", "build"]

@@ -1,9 +1,13 @@
 """Weights carried across from the JAX reference.
 
 The reference keeps parameters as a pytree of arrays with every layer
-weight stacked on a leading axis; the port keeps the same tree with that
-axis unrolled into a list of per-layer dicts.  :func:`params_from_reference`
-maps the one onto the other, so both packages can compute with the same
+weight of a stack stacked on a leading axis; the port keeps the same tree
+with that axis unrolled into a list of per-layer dicts.  The stacks are
+``layers`` (``n_layers``: transformer, hybrid), ``encoder``
+(``n_encoder_layers``) and ``decoder`` (``n_layers``); everything else
+(the hybrid's ``shared`` block, the xLSTM's tuple of ``blocks``) has no
+stacked axis and keeps its structure.  :func:`params_from_reference` maps
+the one onto the other, so both packages can compute with the same
 weights (the tests do this; the port's own ``init`` draws from a
 ``torch.Generator``, whose stream differs from ``jax.random``'s).
 """
@@ -28,9 +32,16 @@ def _tensor(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _tree(node, device: torch.device):
+def tree_to(node, device):
+    """A tree of dicts, tuples and lists keeping its structure, its
+    leaves as tensors on ``device``: a tensor moved, anything else
+    (numpy, ml_dtypes' bfloat16) copied bit for bit."""
     if isinstance(node, dict):
-        return {k: _tree(v, device) for k, v in node.items()}
+        return {k: tree_to(v, device) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(tree_to(v, device) for v in node)
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
     return _tensor(node, device)
 
 
@@ -43,20 +54,23 @@ def _layer(node, i: int, device: torch.device):
 def params_from_reference(params: Params, cfg: ArchConfig,
                           device=None) -> Params:
     """The reference's parameter tree (numpy arrays, or anything
-    ``np.asarray`` takes; layers stacked on a leading axis) as the port's
+    ``np.asarray`` takes; stacks on a leading axis) as the port's
     parameters on ``device`` (default: :func:`repro_torch.runtime.device`).
     Values and dtypes are kept bit for bit."""
     dev = runtime.device(device)
+    stacks = {"layers": cfg.n_layers, "encoder": cfg.n_encoder_layers,
+              "decoder": cfg.n_layers}
     out = {}
     for key, node in params.items():
-        if key != "layers":
-            out[key] = _tree(node, dev)
+        if key not in stacks:
+            out[key] = tree_to(node, dev)
             continue
+        n = stacks[key]
         lead = {np.asarray(leaf).shape[0] for leaf in _leaves(node)}
-        if lead != {cfg.n_layers}:
-            raise ValueError(f"stacked layer axis {sorted(lead)} does not "
-                             f"match n_layers={cfg.n_layers}")
-        out[key] = [_layer(node, i, dev) for i in range(cfg.n_layers)]
+        if lead != {n}:
+            raise ValueError(f"stacked {key!r} axis {sorted(lead)} does not "
+                             f"match its {n} layers")
+        out[key] = [_layer(node, i, dev) for i in range(n)]
     return out
 
 

@@ -1,0 +1,118 @@
+"""Mixture-of-Experts layer: top-k routing with capacity-bounded dispatch
+(the port of ``repro/models/moe.py``).
+
+Per expert, the assigned token ids are picked by a top-capacity selection,
+the tokens gathered to [E, C, D], the expert FFNs applied as batched
+products over the expert axis, and the outputs combined by a scatter-add
+weighted by the router gates.  The expert products stay ``torch.bmm``:
+the reference leaves them to XLA, outside any Pallas kernel.
+
+Both top-k selections are tie-free where it matters: the capacity
+priority ``mask * 2T - t`` holds distinct integers (exact in float32 for
+T < 2^23), so ``torch.topk`` picks the reference's ``lax.top_k`` tokens;
+the gate top-k ties only on equal router probabilities.  The combine is
+``index_add_``, whose float order on CUDA is not fixed.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import normal
+
+Params = Dict[str, Any]
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
+    assert cfg.moe is not None
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    scale = 1.0 / math.sqrt(d)
+    out_scale = 1.0 / math.sqrt(f * 2 * cfg.n_layers)
+    dt = cfg.pdtype()
+    return {
+        "router": normal(gen, (d, e), scale, torch.float32, device),
+        "w_gate": normal(gen, (e, d, f), scale, dt, device),
+        "w_up": normal(gen, (e, d, f), scale, dt, device),
+        "w_down": normal(gen, (e, f, d), out_scale, dt, device),
+    }
+
+
+def capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    moe = cfg.moe
+    c = int(math.ceil(n_tokens * moe.top_k * moe.capacity_factor /
+                      moe.n_experts))
+    return max(min(c, n_tokens), 1)
+
+
+def route(params: Params, xt: torch.Tensor, cfg: ArchConfig
+          ) -> Dict[str, torch.Tensor]:
+    """The router's decisions for tokens ``xt`` [T, D]: ``gate_idx`` [T, k]
+    (experts by falling probability), ``token_ids`` [E, C] (each expert's
+    tokens by priority), the assignment ``mask`` [T, E], ``gathered_mask``
+    [E, C] (0 where an expert's slot is padding), the gate weights
+    ``combine_w`` [T, E] and the Switch auxiliary loss ``aux``."""
+    moe = cfg.moe
+    t = xt.shape[0]
+    e, k = moe.n_experts, moe.top_k
+    c = capacity(t, cfg)
+    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                     # [T, E]
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # [T, k]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    assign = F.one_hot(gate_idx, e).to(torch.float32)         # [T, k, E]
+    mask = assign.sum(dim=1)                                  # [T, E]
+    combine_w = (assign * gate_vals[..., None]).sum(dim=1)    # [T, E]
+
+    # load-balancing auxiliary loss (Switch-style)
+    density = mask.mean(dim=0)
+    density_proxy = probs.mean(dim=0)
+    aux = (density * density_proxy).sum() * (e ** 2) / e
+
+    # top-C tokens per expert by priority (assigned first, then in order)
+    priority = mask.T * (t * 2.0) - torch.arange(
+        t, dtype=torch.float32, device=xt.device)[None, :]
+    token_ids = torch.topk(priority, c, dim=1).indices        # [E, C]
+    gathered_mask = torch.gather(mask.T, 1, token_ids)        # [E, C]
+    return {"gate_idx": gate_idx, "token_ids": token_ids, "mask": mask,
+            "gathered_mask": gathered_mask, "combine_w": combine_w,
+            "aux": aux}
+
+
+def dropped(r: Dict[str, torch.Tensor]) -> int:
+    """(token, expert) assignments of :func:`route`'s result that no
+    capacity slot took (those tokens pass that expert by)."""
+    return int(r["mask"].sum() - r["gathered_mask"].sum())
+
+
+def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (y, aux_loss). Capacity-dropped tokens pass through
+    (the residual connection supplies the identity)."""
+    with torch.profiler.record_function("moe_ffn"):
+        b, s, d = x.shape
+        t = b * s
+        e = cfg.moe.n_experts
+        dtype = cfg.cdtype()
+        xt = x.reshape(t, d)
+        r = route(params, xt, cfg)
+        token_ids = r["token_ids"]
+        c = token_ids.shape[1]
+
+        xg = xt[token_ids.reshape(-1)].reshape(e, c, d).to(dtype)
+        xg = xg * r["gathered_mask"][..., None].to(dtype)    # zero padding
+        gate = torch.bmm(xg, params["w_gate"].to(dtype))
+        up = torch.bmm(xg, params["w_up"].to(dtype))
+        out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dtype))
+
+        # combine: scatter-add expert outputs weighted by the router gates
+        w = torch.gather(r["combine_w"].T, 1, token_ids)     # [E, C]
+        flat_out = (out * w[..., None].to(dtype)).reshape(e * c, d)
+        y = torch.zeros((t, d), dtype=dtype, device=x.device).index_add_(
+            0, token_ids.reshape(-1), flat_out)
+        return y.reshape(b, s, d), r["aux"].to(torch.float32)

@@ -7,7 +7,8 @@
     cache = model.init_cache(batch, max_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-Only the ``dense`` family is ported; the others raise.
+Families: ``dense``/``moe``/``vlm`` (transformer, with a fused prefill),
+``hybrid`` (zamba2), ``ssm`` (xLSTM), ``audio`` (encoder-decoder).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm
 
 Params = Dict[str, Any]
 
@@ -47,6 +48,11 @@ class Model:
     def decode_step(self, params, cache, token, pos):
         return self._decode_step(params, cache, token, pos, self.cfg)
 
+    @property
+    def has_prefill(self) -> bool:
+        """Whether the family has a fused prefill (dense, moe, vlm)."""
+        return self._prefill is not None
+
     def prefill(self, params, tokens, max_len, embeds=None):
         assert self._prefill is not None
         return self._prefill(params, tokens, self.cfg, max_len,
@@ -54,10 +60,17 @@ class Model:
 
 
 def build(cfg: ArchConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return Model(cfg, transformer.init_params, transformer.forward,
                      transformer.init_cache, transformer.decode_step,
                      transformer.prefill)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (the port has 'dense'; "
-        f"see ROADMAP Queue 1)")
+    if cfg.family == "hybrid":
+        return Model(cfg, hybrid.init_params, hybrid.forward,
+                     hybrid.init_cache, hybrid.decode_step)
+    if cfg.family == "ssm":
+        return Model(cfg, xlstm.init_params, xlstm.forward,
+                     xlstm.init_cache, xlstm.decode_step)
+    if cfg.family == "audio":
+        return Model(cfg, encdec.init_params, encdec.forward,
+                     encdec.init_cache, encdec.decode_step)
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,10 +1,11 @@
-"""Decoder-only transformer, dense family (the port of
+"""Decoder-only transformer: the dense, MoE and VLM families (the port of
 ``repro/models/transformer.py``).
 
 Parameters are the reference's tree with the stacked layer axis unrolled
 into a list of per-layer dicts, and the layer scan is a loop over it.
-``cfg.moe`` raises until ``models/moe.py`` is ported (ROADMAP Queue 1);
-``cfg.remat`` only matters to training and is ignored here.
+A VLM (pixtral) is this model with patch embeddings (``embeds``) in front
+of the tokens.  ``cfg.remat`` only matters to training and is ignored
+here.
 """
 from __future__ import annotations
 
@@ -15,25 +16,22 @@ import torch
 from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 Params = Dict[str, Any]
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE layers need models/moe.py, which the port "
-            f"does not have yet (ROADMAP Queue 1)")
-
-
 def init_layer(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
-    _dense_only(cfg)
-    return {
+    params = {
         "ln1": L.init_rmsnorm(cfg.d_model, cfg.pdtype(), device),
         "ln2": L.init_rmsnorm(cfg.d_model, cfg.pdtype(), device),
         "attn": L.init_attention(gen, cfg, device=device),
-        "mlp": L.init_mlp(gen, cfg, device=device),
     }
+    if cfg.moe:
+        params["moe"] = M.init_moe(gen, cfg, device)
+    else:
+        params["mlp"] = L.init_mlp(gen, cfg, device=device)
+    return params
 
 
 def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
@@ -43,7 +41,6 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     cannot be replayed, so weights that must equal the reference's come
     through :func:`repro_torch.models.convert.params_from_reference`."""
     dev = runtime.device(device)
-    _dense_only(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     layers = [init_layer(gen, cfg, dev) for _ in range(cfg.n_layers)]
@@ -54,13 +51,23 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     }
 
 
+def _ffn(layer: Params, h: torch.Tensor, cfg: ArchConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward half: the MoE layer (with its auxiliary
+    loss) or the dense MLP (no loss)."""
+    if cfg.moe:
+        return M.moe_ffn(layer["moe"], h, cfg)
+    return L.mlp(layer["mlp"], h, cfg), None
+
+
 def layer_forward(layer: Params, x: torch.Tensor, cfg: ArchConfig,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     x = x + L.attention(layer["attn"], L.rmsnorm(layer["ln1"], x,
                                                  cfg.norm_eps),
                         cfg, positions)
-    h = L.rmsnorm(layer["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(layer["mlp"], h, cfg)
+    y, aux = _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def _inputs(params: Params, tokens: Optional[torch.Tensor],
@@ -80,16 +87,18 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
     """Full-sequence forward: returns (logits [B,S,V], aux_loss).
 
     ``hidden=True`` returns the post-final-norm hidden states instead of
-    logits.  The dense family has no auxiliary loss: it is 0."""
-    _dense_only(cfg)
+    logits.  ``aux_loss`` sums the MoE layers' load-balancing losses (0
+    without MoE)."""
     x = _inputs(params, tokens, cfg, embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for layer in params["layers"]:
-        x = layer_forward(layer, x, cfg, positions)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params["layers"]:
+        x, layer_aux = layer_forward(layer, x, cfg, positions)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if hidden:
         return x, aux
     return L.unembed(params["embed"], x, cfg), aux
@@ -113,7 +122,6 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
     """token [B] at per-sequence position ``pos`` [B] against the cache.
 
     The cache is updated in place and returned."""
-    _dense_only(cfg)
     x = L.embed(params["embed"], token[:, None], cfg)
     max_len = cache["k"].shape[2]
     for i, layer in enumerate(params["layers"]):
@@ -121,8 +129,7 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
         y, _, _ = L.decode_attention(layer["attn"], h, cfg, cache["k"][i],
                                      cache["v"][i], pos, max_len)
         x = x + y
-        h = L.rmsnorm(layer["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(layer["mlp"], h, cfg)
+        x = x + _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)[0]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits[:, 0], cache
@@ -132,8 +139,8 @@ def prefill(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
             max_len: int, embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Run the full-sequence forward while materializing the KV cache
-    ([L, B, max_len, KH, hd], zero past the prompt)."""
-    _dense_only(cfg)
+    ([L, B, max_len, KH, hd], zero past the prompt).  ``embeds`` are a
+    VLM's patch embeddings, placed before ``tokens``."""
     x = _inputs(params, tokens, cfg, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -148,8 +155,7 @@ def prefill(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
         y = torch.einsum("bshk,hkd->bsd", out,
                          layer["attn"]["wo"].to(cfg.cdtype()))
         x = x + y
-        h = L.rmsnorm(layer["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(layer["mlp"], h, cfg)
+        x = x + _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)[0]
         ks[i, :, :s] = k
         vs[i, :, :s] = v
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -325,7 +325,11 @@ def _assert_one_launch(before, kind):
     (2, 6, 1, 333, 129, 64), (2, 6, 1, 333, 129, 128), (1, 6, 1, 65, 1, 64),
     (1, 6, 1, 65, 1, 128), (1, 2, 1, 1, 300, 64), (1, 2, 1, 1, 300, 128),
     (3, 6, 1, 257, 257, 64), (1, 12, 2, 1000, 777, 64),
-    (1, 12, 2, 300, 200, 128)])
+    (1, 12, 2, 300, 200, 128),
+    # the families' new shapes, cut short: pixtral's head dim 160 (SIMT
+    # in bf16 too), seamless's cross-attention (Sq < Skv, run causal and
+    # not)
+    (2, 8, 2, 200, 200, 160), (2, 4, 4, 128, 320, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
@@ -383,6 +387,49 @@ def test_flash_attention_wgmma_rejects_unaligned(cuda):
         with pytest.raises(ValueError, match="TMA"):
             fa_kernel.flash_attention_kernel(q, k, k, True)
         assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The model families on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-1.2b",
+                                  "xlstm-350m", "seamless-m4t-large-v2",
+                                  "pixtral-12b"])
+def test_family_forward_on_the_card_matches_cpu(cuda, arch):
+    """Each family's smoke config in float32 compute with flash
+    attention: the forward on the card (K5) against the same weights on
+    the CPU (K5's plain version), to the LM tolerance of
+    tests/test_torch_lm.py (1e-4)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.convert import tree_to
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              attn_impl="flash")
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    n_embeds = {"audio": 24, "vlm": cfg.n_patches}.get(cfg.family, 0)
+    embeds = (rng.standard_normal((2, n_embeds, cfg.d_model)).astype(
+        np.float32) if n_embeds else None)
+
+    def run(dev, tree):
+        emb = None if embeds is None else torch.as_tensor(embeds, device=dev)
+        return model.forward(tree, torch.as_tensor(tokens, device=dev),
+                             embeds=emb)[0]
+
+    want = run("cpu", params)
+    reset_launch_counts()
+    got = run(cuda, tree_to(params, cuda))
+    torch.cuda.synchronize()
+    from repro_torch.models.hybrid import n_shared_applications
+    attention = {"moe": cfg.n_layers, "vlm": cfg.n_layers,
+                 "audio": cfg.n_encoder_layers + 2 * cfg.n_layers,
+                 "hybrid": n_shared_applications(cfg), "ssm": 0}
+    assert launch_counts().get("flash_attention", 0) == \
+        attention[cfg.family]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

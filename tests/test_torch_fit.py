@@ -201,6 +201,65 @@ def test_fitted_predictions_nonnegative_clipped_and_roundtrip():
     np.testing.assert_allclose(m.predict(x), m2.predict(x), rtol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["sigmoids", "log_loglog"])
+def test_recorded_fit_replays_exactly(case):
+    """Recording a fit changes none of its bits, keeps every step's
+    state and gradient, and a replay on the same device finds no gap."""
+    kind, x, y, _ = RECOVERY[case]
+    record = {}
+    fitted = p_models.fit(kind, x, y, record=record)
+    plain = p_models.fit(kind, x, y)
+    for k, v in plain.params.items():
+        np.testing.assert_array_equal(fitted.params[k], v)
+    steps = 4000 if kind == "sigmoids" else 2000
+    assert len(record["states"]) == steps + 1
+    assert len(record["grads"]) == steps
+    assert p_models.replay_gap(record, "cpu") == {"grad": 0.0, "update": 0.0}
+
+
+@pytest.mark.parametrize("fault", ["gradient", "moment", "parameter"])
+def test_replay_finds_a_wrong_step(fault):
+    """One step computed wrongly shows in the replay, above
+    ``chip_smoke.py``'s limits (gradient 1e-4 of the fit's largest
+    entry, update 1e-5 of its terms): an early gradient off by a
+    hundredth of its size, or late in the fit a first moment or a
+    parameter off by a thousandth."""
+    kind, x, y, _ = RECOVERY["sigmoids"]
+    record = {}
+    p_models.fit(kind, x, y, record=record)
+    if fault == "gradient":
+        g = record["grads"][10]
+        record["grads"][10] = g + 0.01 * torch.abs(g).max()
+    else:
+        i = 3000
+        p, m, v = record["states"][i + 1]
+        if fault == "moment":
+            m = m * 1.001
+        else:
+            p = p * 1.001
+        record["states"][i + 1] = (p, m, v)
+    gap = p_models.replay_gap(record, "cpu")
+    if fault == "gradient":
+        assert gap["grad"] > 1e-4, gap
+    else:
+        assert gap["update"] > 1e-5, gap
+
+
+def test_fits_of_data_one_ulp_apart_replay_within_the_limit():
+    """Rounding that differs from step to step (here: the same fit of
+    data moved up by one float32 ulp, replayed against the unmoved
+    data's loss) stays under the replay's gradient limit, though the two
+    fits themselves drift apart."""
+    kind, x, y, _ = RECOVERY["sigmoids"]
+    y32 = y.astype(np.float32)
+    base, moved = {}, {}
+    p_models.fit(kind, x, y32, record=base)
+    p_models.fit(kind, x, np.nextafter(y32, np.float32(np.inf)),
+                 record=moved)
+    gap = p_models.replay_gap(dict(moved, loss=base["loss"]), "cpu")
+    assert gap["grad"] <= 1e-4 and gap["update"] == 0.0, gap
+
+
 def test_fit_needs_a_device_choice(monkeypatch):
     """Without a CPU request the fitters run on CUDA, or raise."""
     if torch.cuda.is_available():

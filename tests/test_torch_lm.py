@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCH_IDS as r_arch_ids
 from repro.configs import get_config as r_get_config
 from repro.configs import get_smoke_config as r_get_smoke
 from repro.kernels.flash_attention import ops as r_fa_ops
@@ -275,6 +276,9 @@ def test_decode_matches_forward():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("which", ["config", "smoke"])
 def test_configs_match_reference(which):
+    """All ten architectures, field for field; an unknown id raises
+    KeyError, as in the reference."""
+    assert ARCH_IDS == r_arch_ids and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         get_r = r_get_config if which == "config" else r_get_smoke
         get_p = get_config if which == "config" else get_smoke_config
@@ -286,7 +290,7 @@ def test_configs_match_reference(which):
         (28, 1536, 12, 2, 8960, 151936, 128)
     assert full.pdtype() == torch.float32 and full.cdtype() == torch.bfloat16
     with pytest.raises(KeyError):
-        get_config("llama3-405b")
+        get_config("no-such-arch")
 
 
 def test_params_from_reference_keeps_every_weight():
@@ -322,13 +326,13 @@ def test_params_from_reference_keeps_every_weight():
                               device="cpu")
 
 
-def test_other_families_and_moe_raise():
-    cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError):
-        build(dataclasses.replace(cfg, family="ssm"))
-    from repro_torch.configs.base import MoEConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(dataclasses.replace(cfg, moe=MoEConfig(4, 2))).init(0)
+def test_unknown_family_raises():
+    """As the reference's registry: ValueError naming the family."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        build(cfg)
+    with pytest.raises(ValueError, match="rnn"):
+        r_build(dataclasses.replace(r_get_smoke(ARCH), family="rnn"))
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
