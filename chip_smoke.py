@@ -42,10 +42,11 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   seamless-m4t-large-v2 (encode 4 x 1,024 frames, forward on 4 x 512
   targets, ``prefill_cross`` and 16 decode steps: K5 non-causal and
   with Sq != Skv), pixtral-12b (256 patches + 1,792 tokens, x 4, through
-  the fused prefill on K5's SIMT variant at D 160, and 32 decode
-  steps).  Each is held against the plain attention path as the lm
-  phase is (xlstm, without attention: float32 on the card against the
-  host's CPU); every check runs before the phase fails on any.
+  the fused prefill, all 40 K5 launches on its tensor-core variant at
+  D 160, and 32 decode steps).  Each is held against the plain attention
+  path as the lm phase is (xlstm, without attention: float32 on the card
+  against the host's CPU); every check runs before the phase fails on
+  any.
 * ``kernels``: every kernel against its plain PyTorch version on the
   card, at the phases' shapes plus ragged ones, with times and bounds;
   K1 also at its edges (N around its shared tree's size, N = 1-33, runs of
@@ -55,7 +56,9 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   depth, NaN queries among the float32 cases; K4's hits and mask
   variants, and the bloom_probe op's device time, host time per call and
   the kernels one call launched (traced); K5 also at each family's
-  attention shapes, with SDPA's time beside it.
+  attention shapes, with SDPA's time beside it (and pixtral's in
+  float32, on the SIMT variant), and the registers and shared memory of
+  its tensor-core variant at each head dim it is built for.
 * ``search``: a profile trained at the full grid (the 14 Level-2
   micro-benchmarks on the host, ``repro_torch.core.training.
   train_profile``, every fit on the card), every step of every fit
@@ -90,9 +93,10 @@ Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
-``--only whatif`` runs the whatif phase alone and ``--only stores`` times
-K1 and the bloom_probe op at the kvstore shapes; they print no result
-line.
+``--only whatif`` runs the whatif phase alone, ``--only stores`` times
+K1 and the bloom_probe op at the kvstore shapes, and ``--only k5`` times
+K5 beside SDPA at the lm phase's shape and each family's; they print no
+result line.
 """
 from __future__ import annotations
 
@@ -1755,8 +1759,9 @@ def _family_seamless(seed: int, checks: Checks) -> dict:
 
 def _family_pixtral(seed: int, checks: Checks) -> dict:
     """pixtral-12b at full width and depth (bf16 parameters): 256 patch
-    embeddings + 1,792 tokens, x 4, through the fused prefill (K5's SIMT
-    variant, D 160, 40 launches) and 32 decode steps."""
+    embeddings + 1,792 tokens, x 4, through the fused prefill (K5's
+    tensor-core variant at D 160, 40 launches, none on SIMT) and 32
+    decode steps."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1777,7 +1782,8 @@ def _family_pixtral(seed: int, checks: Checks) -> dict:
     run = out.pop("run")
     k5 = out["k5_launches"]
     checks.expect(k5.get("flash_attention") == cfg.n_layers and
-                  k5.get("flash_attention_simt") == cfg.n_layers,
+                  k5.get("flash_attention_wgmma") == cfg.n_layers and
+                  k5.get("flash_attention_simt", 0) == 0,
                   f"pixtral prefill K5 launches {k5}")
     checks.expect(bool(torch.isfinite(run["prefill_logits"].float()).all()),
                   "pixtral prefill logits not finite")
@@ -2295,32 +2301,38 @@ def _k5_inputs(gen, b, h, kh, sq, skv, d, dtype):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-#: K5 at each family's shapes (bf16, the full configs): name, B, H, KH,
-#: Sq, Skv, D, causal
+#: K5 at each family's shapes (the full configs): name, B, H, KH, Sq,
+#: Skv, D, causal, dtype.  bf16 is the served path's; pixtral's float32
+#: row is the float32-compute witness's, and holds the SIMT variant at D 160
 K5_FAMILY_SHAPES = [
-    ("granite-moe prefill", 4, 16, 8, 2048, 2048, 64, True),
-    ("zamba2 shared attention", 4, 32, 32, 2048, 2048, 64, True),
-    ("seamless encoder", 4, 16, 16, 1024, 1024, 64, False),
-    ("seamless decoder self", 4, 16, 16, 512, 512, 64, True),
-    ("seamless cross", 4, 16, 16, 512, 1024, 64, False),
-    ("pixtral prefill", 4, 32, 8, 2048, 2048, 160, True),
+    ("granite-moe prefill", 4, 16, 8, 2048, 2048, 64, True, "bfloat16"),
+    ("zamba2 shared attention", 4, 32, 32, 2048, 2048, 64, True, "bfloat16"),
+    ("seamless encoder", 4, 16, 16, 1024, 1024, 64, False, "bfloat16"),
+    ("seamless decoder self", 4, 16, 16, 512, 512, 64, True, "bfloat16"),
+    ("seamless cross", 4, 16, 16, 512, 1024, 64, False, "bfloat16"),
+    ("pixtral prefill", 4, 32, 8, 2048, 2048, 160, True, "bfloat16"),
+    ("pixtral prefill float32", 4, 32, 8, 2048, 2048, 160, True, "float32"),
 ]
 
 
-def k5_family_cases(gen) -> list:
-    """K5 against its plain version at each family's shape: error, time,
+def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
+    """K5 against its plain version at each family's shape: error (bf16
+    within 1e-4 + 2^-8 |ref|, float32 within 1e-5 + 1e-5 |ref|), time,
     bound (4 B H D x the pairs the mask keeps, at the peak of the inputs'
-    type: bf16 on the tensor cores, whichever variant runs), the plain
-    version's time and SDPA's."""
+    type: bf16 on the tensor cores, whichever variant runs; float32 off
+    them), the plain version's time and SDPA's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     rows = []
-    for name, b, h, kh, sq, skv, d, causal in K5_FAMILY_SHAPES:
-        q, k, v = _k5_inputs(gen, b, h, kh, sq, skv, d, torch.bfloat16)
+    for name, b, h, kh, sq, skv, d, causal, dtype in shapes:
+        dtype = getattr(torch, dtype)
+        q, k, v = _k5_inputs(gen, b, h, kh, sq, skv, d, dtype)
         kind = kernel.variant(q.dtype, d)
+        rtol, atol = (2.0 ** -8, 1e-4) if dtype == torch.bfloat16 else \
+            (1e-5, 1e-5)
         before = launch_counts()
         got = kernel.flash_attention_kernel(q, k, v, causal).float()
         moved = _k5_moved(before, launch_counts())
@@ -2329,7 +2341,7 @@ def k5_family_cases(gen) -> list:
         want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
         err = (got - want).abs()
         max_err = float(err.max())
-        assert bool((err <= 1e-4 + 2.0 ** -8 * want.abs()).all()), \
+        assert bool((err <= atol + rtol * want.abs()).all()), \
             f"K5 ({kind}) vs plain at {name}: max abs {max_err:.3e}"
         del got, want, err
         ms = timed_ms(lambda: kernel.flash_attention_kernel(q, k, v, causal),
@@ -2345,12 +2357,14 @@ def k5_family_cases(gen) -> list:
             log(f"K5 {name}: SDPA refused the shape: {exc}")
         pairs = _causal_pairs(sq, skv) if causal else sq * skv
         n_ops = 4 * b * h * d * pairs
-        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         peak = "bf16_tensor" if q.dtype == torch.bfloat16 else "fp32"
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / PEAKS[peak] * 1e3
         rows.append({"shape": name, "b": b, "heads": f"{h}/{kh}", "sq": sq,
-                     "skv": skv, "d": d, "causal": causal, "variant": kind,
+                     "skv": skv, "d": d, "causal": causal,
+                     "dtype": str(dtype).removeprefix("torch."),
+                     "variant": kind,
                      "max_abs_err": max_err,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": max(t_bytes, t_ops),
@@ -2370,8 +2384,8 @@ def kernel_k5(seed, launches) -> dict:
     b, h, kh, sq, d = LM_BATCH, 12, 2, LM_PROMPT, 128
     main = _k5_inputs(gen, b, h, kh, sq, sq, d, torch.bfloat16)
     # (inputs, causal, rtol, atol): bf16 output rounding is 2^-9 relative,
-    # held at 2^-8 plus 1e-4; float32 at 1e-5.  bf16 at D 64 / 128 runs
-    # the tensor-core variant, the rest the SIMT one
+    # held at 2^-8 plus 1e-4; float32 at 1e-5.  bf16 at D 64 / 128 / 160
+    # runs the tensor-core variant, the rest the SIMT one
     bf16_tol, f32_tol = (2.0 ** -8, 1e-4), (1e-5, 1e-5)
     cases = [(main, True) + bf16_tol,
              (_k5_inputs(gen, 1, h, kh, 1000, 777, d, torch.bfloat16),
@@ -2426,6 +2440,11 @@ def kernel_k5(seed, launches) -> dict:
     qf, kf, vf = (x.float() for x in main)
     simt_ms = timed_ms(lambda: kernel.flash_attention_kernel(qf, kf, vf,
                                                              True), reps=5)
+    # the tensor-core variant's registers a thread (at launch) and shared
+    # memory a block, at each head dim it is built for
+    wgmma_info = {str(dd): kernel.wgmma_info(dd)
+                  for dd in kernel.WGMMA_HEAD_DIMS}
+    log(f"K5 wgmma_info: {json.dumps(wgmma_info)}")
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     n_ops = 4 * b * h * d * _causal_pairs(sq, sq)
     return _row("K5 flash_attention", "cuda",
@@ -2445,12 +2464,22 @@ def kernel_k5(seed, launches) -> dict:
                  # the tensor-core work the kernel does: P V twice (P
                  # split into bf16 hi + lo), so 1.5x the bound's count
                  "tensor_tflops_done": 1.5 * n_ops / (ms * 1e-3) / 1e12,
-                 **kernel.wgmma_info(d),
+                 "wgmma_info": wgmma_info,
                  "simt_float32_ms": simt_ms,
                  "family_shapes": k5_family_cases(gen),
                  "simt_float32_shape": f"[{b},{h},{sq},{d}] float32 causal",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True, enable_gqa=True)"})
+
+
+def only_k5(seed: int) -> list:
+    """``--only k5``: K5 against its plain version, timed beside SDPA, at
+    the lm phase's shape and each family's (:func:`k5_family_cases`)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    lm = ("lm prefill", LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128, True,
+          "bfloat16")
+    return k5_family_cases(gen, [lm] + K5_FAMILY_SHAPES)
 
 
 def only_stores(seed: int) -> dict:
@@ -2512,12 +2541,13 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
-    parser.add_argument("--only", choices=["whatif", "stores"],
+    parser.add_argument("--only", choices=["whatif", "stores", "k5"],
                         default=None,
                         help="whatif: run that phase alone, without the "
                              "check of its launches; stores: time K1 and "
-                             "the bloom_probe op at the kvstore shapes.  "
-                             "Either prints its report but no kernels line "
+                             "the bloom_probe op at the kvstore shapes; k5: "
+                             "time K5 and SDPA at the lm and family shapes.  "
+                             "Each prints its report but no kernels line "
                              "and no result line (to time an older "
                              "checkout's src/ with this script)")
     args = parser.parse_args(argv)
@@ -2539,8 +2569,8 @@ def main(argv=None) -> int:
     report = {"torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    names = [n for n in build.SOURCES
-             if args.only != "stores" or n != "flash_attention"]
+    names = {"stores": [n for n in build.SOURCES if n != "flash_attention"],
+             "k5": ["flash_attention"]}.get(args.only, list(build.SOURCES))
     build.build(names)
     report["nvcc_build_s"] = time.perf_counter() - t0
     for name in names:
@@ -2552,6 +2582,13 @@ def main(argv=None) -> int:
     if args.only == "stores":
         report["stores"] = only_stores(args.seed)
         log("stores: " + json.dumps(report["stores"]))
+        _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
+    if args.only == "k5":
+        report["k5"] = only_k5(args.seed)
+        for row in report["k5"]:
+            log("k5: " + json.dumps(row))
         _write_report(args.report, report)
         log(_nvidia_smi())
         return 0

@@ -25,13 +25,13 @@
 //
 // The launcher takes the variant by input, explicitly (the wrapper in
 // kernels/flash_attention/kernel.py names it and counts it):
-//   * flash_attention_wgmma_launch: bf16 with D in {64, 128}, the tensor-
-//     core kernel below (namespace tc);
+//   * flash_attention_wgmma_launch: bf16 with D in {64, 128, 160}, the
+//     tensor-core kernel below (namespace tc);
 //   * flash_attention_launch: float32, or any other D, the SIMT kernel
 //     (namespace simt), whose float32 products hold the float32-compute
 //     path to 1e-5.
 //
-// --- tc: bf16, D in {64, 128}, on wgmma with TMA-fed K/V tiles ---------
+// --- tc: bf16, D in {64, 128, 160}, on wgmma with TMA-fed K/V tiles ----
 //   * One block of 384 threads owns one (batch * head, 128-row q tile):
 //     warpgroup 0 is the producer (one thread issues every TMA load, the
 //     warpgroup gives its registers to the others with setmaxnreg), and
@@ -45,20 +45,23 @@
 //     memory, both K-major (D contiguous), in the 128-byte swizzle the
 //     TMA boxes were written in.  S stays unscaled in float32; the scale
 //     and log2(e) fold into one exp2 argument (q is never rounded to bf16
-//     after scaling: 1/sqrt(128) is not a power of two).
+//     after scaling: 1/sqrt(128) is not a power of two), taken by
+//     ex2.approx.ftz (p under 2^-126 is 0).
 //   * The online softmax runs on the accumulator fragments in registers:
 //     each row's values sit in a quad of threads, so its max takes two
 //     shuffles; m, l and the rescale of O use the float32 p.
 //   * O += P V is two wgmma passes per k-step, A = P_hi = bf16(p) and
 //     then A = P_lo = bf16(p - P_hi), from registers (the S fragment is
-//     the A fragment), B = the V tile [keys, D], MN-major, so the
-//     transpose bit is set.  Why split P: FlashAttention-2/3 round P once
+//     the A fragment), B = the V tile [keys, W], MN-major, so the
+//     transpose bit is set, N = W = D padded to whole 64-column boxes
+//     (n64, n128, n192).  Why split P: FlashAttention-2/3 round P once
 //     to bf16, and at [1, 12, 2048, 128] causal that puts 4.5% of the
 //     outputs (the ones near zero) outside this kernel's own check,
 //     |got - ref| <= 1e-4 + 2^-8 |ref| against float32 attention_ref;
 //     hi + lo carries p to ~16 bits and passes it.  The split costs 1.5x
 //     the tensor-core work of plain FA2, which the bound above does not
-//     count, so this design can reach at best ~1.5x that bound.
+//     count, so this design can reach at best ~1.5x that bound; ~1.4x
+//     at D 160, where P V runs 192 columns for 160: (1 + 1.5 x 1.2) / 2.
 //   * Causal: only the tiles on the diagonal pay for the mask, and the
 //     heaviest q tiles are issued first (blockIdx.y walks q tiles from
 //     the last), so the triangle does not leave SMs idle in the last wave.
@@ -70,16 +73,29 @@
 //     -lcuda), from the tensors' strides: 4-D maps (D, S, heads, batch).
 //     Global strides must be multiples of 16 bytes and the base 16-byte
 //     aligned; the wrapper checks and raises.  The 128-byte swizzle takes
-//     at most 128 bytes in a box's inner dimension, so at D = 128 every
-//     tile is two boxes of 64 columns, and the wgmma descriptors use the
-//     same swizzle (tiles sit on 1024-byte boundaries).
+//     at most 128 bytes in a box's inner dimension, so a tile is
+//     ceil(D / 64) boxes of 64 columns (two at D 128, three at D 160),
+//     and the wgmma descriptors use the same swizzle (tiles sit on
+//     1024-byte boundaries).  D 160 pads: the maps keep their extent at
+//     D, so TMA zero-fills the third box's columns 160-191 and never
+//     reads past a row's D columns; it counts the whole box's bytes
+//     toward complete_tx all the same, so the tiles' sizes and both
+//     expect_tx counts use the padded width W (with D's own, the barrier
+//     would never complete).  Q K^T stops at D / 16 k-steps, short of the
+//     zero half; P V's zero columns give output columns that are never
+//     stored.  (V's MN-major swizzled layout repeats in atoms of 64
+//     columns, so N = 160 is not a layout its descriptor can express.)
 //   * A wrong wgmma descriptor (leading / stride byte offsets, swizzle) or
 //     fragment-to-row map gives wrong numbers, not a crash: the tests and
-//     chip_smoke.py hold D = 64 and 128, ragged lengths, causal with
+//     chip_smoke.py hold D = 64, 128 and 160, ragged lengths, causal with
 //     Sq > Skv and GQA against attention_ref.
-//   * Registers: O (64 x 128 f32) is 64 a consumer thread, S 32, P_hi and
-//     P_lo 32; setmaxnreg gives consumers 232.  -Xptxas -v must show no
-//     spills (chip_smoke.py prints it).
+//   * Registers: O (64 x W f32) is W / 2 a consumer thread (96 at D
+//     160), S 32, P_hi and P_lo 32.  setmaxnreg gives consumers 232 at
+//     run time, but ptxas allocates them the launch's 168 all the same,
+//     so at D 160 the softmax's exp2 is ex2.approx.ftz (exp2f's path for
+//     subnormal results spilled there).  -Xptxas -v must show no spills
+//     (chip_smoke.py prints it).  Shared memory at D 160: Q 48 KB, K and
+//     V 24 KB a tile and stage, 145 KB with two stages.
 //   * The mask value: with exp2 and -1e30 the dead-row guard stays exact
 //     (p = 0, corr = 1 while the row's max is the mask value).
 //   * A barrier wait that never completes would hang the card: every wait
@@ -300,8 +316,12 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D> struct Layout {   // byte offsets in dynamic shared memory
-    static constexpr int kQBytes = kBQ * D * 2;
-    static constexpr int kTileBytes = kBK * D * 2;          // one K or V tile
+    // a row of every tile is D padded to whole boxes: TMA zero-fills the
+    // columns past D and counts them toward the barrier's bytes all the same
+    static constexpr int kBoxes = (D + kBox - 1) / kBox;
+    static constexpr int kWidth = kBoxes * kBox;
+    static constexpr int kQBytes = kBQ * kWidth * 2;
+    static constexpr int kTileBytes = kBK * kWidth * 2;     // one K or V tile
     static constexpr int kK = kQBytes;                      // + stage * tile
     static constexpr int kV = kK + kStages * kTileBytes;
     static constexpr int kBar = kV + kStages * kTileBytes;  // q, full, empty
@@ -474,13 +494,70 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+// D[64 x 192] += A[64 x 16] B[16 x 192]: A in registers (four bf16x2
+// per thread), B MN-major in shared memory (the transpose bit): three
+// 64-column boxes, the leading byte offset apart
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O[64 x N] += P[64 x 16] V[16 x N] at the tile width N (D padded to
+// whole boxes)
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-    if constexpr (D == 64)
+    static_assert(N == 64 || N == 128 || N == 192, "no wgmma_pv for N");
+    if constexpr (N == 64)
         wgmma_rs_n64(o, a, b);
-    else
+    else if constexpr (N == 128)
         wgmma_rs_n128(o, a, b);
+    else
+        wgmma_rs_n192(o, a, b);
+}
+
+// 2^x on the SFU, subnormal results flushed to 0 (a p below 2^-126 moves
+// no output); exp2f's extra path for them spilled at D 160
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -495,7 +572,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ out, Strides os, int heads,
                    int group, int sq, int skv, float scale_log2, int causal) {
     using L = Layout<D>;
-    constexpr int kBoxes = D / kBox;
+    constexpr int kBoxes = L::kBoxes, kWidth = L::kWidth;
     extern __shared__ uint8_t smem_raw[];
     // 128-byte swizzled tiles (TMA and wgmma alike) sit on 1024-byte
     // boundaries; the launcher allocates 1 KB of slack for this
@@ -561,9 +638,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int col0 = 2 * (lane % 4);   // + 8 j: the columns of fragment j
     const int tiles = n_tiles(row_lo + 63);
 
-    float o[D / 2];
+    // O at the padded width: the columns past D stay 0 and are not stored
+    float o[kWidth / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kWidth / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
     const uint32_t q_tile = base + 64 * cw * kRowBytes;
@@ -576,6 +654,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(full + 8 * s, (t / kStages) & 1);
 
         // S = Q K^T: D / 16 k-steps of 32 bytes inside the swizzled boxes
+        // (at D 160 the last two in box 2, short of its zero half)
         float sc[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -618,7 +697,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             const float m_new = fmaxf(m[r], mx[r]);
             dead[r] = m_new <= kNegInf / 2;
             mc[r] = dead[r] ? 0.f : m_new * scale_log2;
-            corr[r] = dead[r] ? 1.f : exp2f(m[r] * scale_log2 - mc[r]);
+            corr[r] = dead[r] ? 1.f : exp2_ftz(m[r] * scale_log2 - mc[r]);
             m[r] = m_new;
         }
         // P = exp2(S scale log2e - m scale log2e) in float32, split into
@@ -631,9 +710,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             for (int j = 0; j < 4; ++j) {
                 const int i = 8 * kk + 2 * j, r = j & 1;
                 const float p0 =
-                    dead[r] ? 0.f : exp2f(fmaf(sc[i], scale_log2, -mc[r]));
+                    dead[r] ? 0.f
+                            : exp2_ftz(fmaf(sc[i], scale_log2, -mc[r]));
                 const float p1 =
-                    dead[r] ? 0.f : exp2f(fmaf(sc[i + 1], scale_log2, -mc[r]));
+                    dead[r] ? 0.f
+                            : exp2_ftz(fmaf(sc[i + 1], scale_log2, -mc[r]));
                 sum[r] += p0 + p1;
                 const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
                 p_hi[kk][j] = bf16x2_bits(hi);
@@ -646,27 +727,28 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < kWidth / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
         // O += P_hi V + P_lo V: 4 k-steps of 16 keys = two 8-row groups
         fence_regs(o);
         wgmma_fence();
-        constexpr uint32_t kNextBox = kBK * kRowBytes;   // V's columns 64+
+        constexpr uint32_t kNextBox = kBK * kRowBytes;   // V's next box
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-            wgmma_pv<D>(o, p_hi[kk],
-                        smem_desc(v_tile + kk * 16 * kRowBytes, kNextBox));
+            wgmma_pv<kWidth>(
+                o, p_hi[kk], smem_desc(v_tile + kk * 16 * kRowBytes, kNextBox));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-            wgmma_pv<D>(o, p_lo[kk],
-                        smem_desc(v_tile + kk * 16 * kRowBytes, kNextBox));
+            wgmma_pv<kWidth>(
+                o, p_lo[kk], smem_desc(v_tile + kk * 16 * kRowBytes, kNextBox));
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(o);
         mbar_arrive(empty + 8 * s);   // this stage's K and V are read
     }
 
-    // epilogue: O / max(l, 1e-30) in bf16 through out's strides
+    // epilogue: O / max(l, 1e-30) in bf16 through out's strides, the
+    // columns below D only (fragment i holds column 8 (i >> 2) + col0)
     __nv_bfloat16* ob = out + b * os.b + h * os.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -758,6 +840,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int D> int info(int* regs, int* smem) {
+    cudaFuncAttributes attr;
+    const cudaError_t err =
+        cudaFuncGetAttributes(&attr, flash_wgmma_kernel<D>);
+    *regs = attr.numRegs;
+    *smem = Layout<D>::kAlloc;
+    return static_cast<int>(err);
+}
+
 }  // namespace tc
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 int64, the (b, h, s) element
@@ -792,7 +883,7 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     }
 }
 
-// bf16 q, k, v, out with D 64 or 128 (the wrapper checks the 16-byte
+// bf16 q, k, v, out with D 64, 128 or 160 (the wrapper checks the 16-byte
 // alignment TMA needs: base pointers, and the (b, h, s) strides of q, k
 // and v in bytes).  strides as flash_attention_launch.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
@@ -813,6 +904,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
         case 128:
             return tc::launch<128>(q, k, v, out, batch, heads, kv_heads, sq,
                                    skv, strides, scale, causal, s);
+        case 160:
+            return tc::launch<160>(q, k, v, out, batch, heads, kv_heads, sq,
+                                   skv, strides, scale, causal, s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -822,17 +916,10 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
 // thread at launch (before setmaxnreg moves them) and dynamic shared
 // memory in bytes.  Returns a CUDA error code.
 extern "C" int flash_attention_wgmma_info(int d, int* regs, int* smem) {
-    cudaFuncAttributes attr;
-    cudaError_t err;
-    if (d == 64) {
-        err = cudaFuncGetAttributes(&attr, tc::flash_wgmma_kernel<64>);
-        *smem = tc::Layout<64>::kAlloc;
-    } else if (d == 128) {
-        err = cudaFuncGetAttributes(&attr, tc::flash_wgmma_kernel<128>);
-        *smem = tc::Layout<128>::kAlloc;
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+        case 64: return tc::info<64>(regs, smem);
+        case 128: return tc::info<128>(regs, smem);
+        case 160: return tc::info<160>(regs, smem);
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    *regs = attr.numRegs;
-    return static_cast<int>(err);
 }

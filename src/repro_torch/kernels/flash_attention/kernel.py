@@ -13,8 +13,10 @@ in place of the other:
 
 * ``"wgmma"``: bf16 with D in :data:`WGMMA_HEAD_DIMS` — tensor cores
   (``wgmma``) for both products, K/V tiles brought in by TMA through an
-  mbarrier ring.  TMA needs 16-byte aligned base pointers and strides;
-  an input without them raises :class:`ValueError`.
+  mbarrier ring.  Tiles are whole 64-column boxes: at D 160 a third box
+  whose columns 160-191 TMA fills with zeros, and P V at N 192.  TMA
+  needs 16-byte aligned base pointers and strides; an input without
+  them raises :class:`ValueError`.
 * ``"simt"``: float32, or any other D — scalar float32 products, so the
   float32 path holds 1e-5.
 
@@ -37,7 +39,7 @@ from repro_torch.kernels import build, counter
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 #: head dims the tensor-core variant is built for (bf16 only)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 160)
 
 LAUNCHES = counter("flash_attention")
 VARIANT_LAUNCHES = {"wgmma": counter("flash_attention_wgmma"),
@@ -73,7 +75,7 @@ def wgmma_info(head_dim: int) -> dict:
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs for inputs of ``dtype`` and ``head_dim``:
-    "wgmma" (tensor cores) for bf16 at D 64 or 128, else "simt"."""
+    "wgmma" (tensor cores) for bf16 at D 64, 128 or 160, else "simt"."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

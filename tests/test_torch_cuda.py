@@ -319,24 +319,27 @@ def _assert_one_launch(before, kind):
     (2, 4, 4, 200, 300, 24), (1, 2, 2, 384, 128, 128), (1, 12, 2, 1000, 777,
                                                          128),
     (1, 2, 1, 70, 70, 256), (1, 2, 1, 300, 200, 16),
-    # the tensor-core variant's edges (bf16 at D 64 / 128): Sq and Skv
-    # not multiples of its 128-row / 64-key tiles, GQA group 6, Sq > Skv
-    # causal, one key, one query row
+    # the tensor-core variant's edges (bf16 at D 64 / 128 / 160): Sq and
+    # Skv not multiples of its 128-row / 64-key tiles, GQA group 6, Sq >
+    # Skv causal, one key, one query row
     (2, 6, 1, 333, 129, 64), (2, 6, 1, 333, 129, 128), (1, 6, 1, 65, 1, 64),
     (1, 6, 1, 65, 1, 128), (1, 2, 1, 1, 300, 64), (1, 2, 1, 1, 300, 128),
     (3, 6, 1, 257, 257, 64), (1, 12, 2, 1000, 777, 64),
     (1, 12, 2, 300, 200, 128),
-    # the families' new shapes, cut short: pixtral's head dim 160 (SIMT
-    # in bf16 too), seamless's cross-attention (Sq < Skv, run causal and
-    # not)
-    (2, 8, 2, 200, 200, 160), (2, 4, 4, 128, 320, 64)])
+    (2, 6, 1, 333, 129, 160), (1, 6, 1, 65, 1, 160), (1, 2, 1, 1, 300, 160),
+    (1, 12, 2, 1000, 777, 160),
+    # the families' new shapes, cut short: pixtral's head dim 160 and its
+    # GQA (32 heads on 8), seamless's cross-attention (Sq < Skv, run
+    # causal and not)
+    (2, 8, 2, 200, 200, 160), (1, 32, 8, 300, 300, 160),
+    (2, 4, 4, 128, 320, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
                                               causal, dtype):
     """Against attention_ref in float32 on the same inputs: float32 to
     1e-5; bf16 to the rounding of a float32 result to bf16 (2^-8
-    relative) plus 1e-4.  bf16 at D 64 / 128 runs the tensor-core
+    relative) plus 1e-4.  bf16 at D 64 / 128 / 160 runs the tensor-core
     variant, the rest the SIMT one; the counters say which ran."""
     gen = torch.Generator(device=cuda).manual_seed(sq * skv + d)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
@@ -356,6 +359,31 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
     torch.testing.assert_close(bshd.transpose(1, 2), got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wgmma_d160_reads_no_column_past_d(cuda, causal):
+    """At D 160 the tensor-core variant's third box spans columns 128-191:
+    TMA must fill 160-191 with zeros, never read them from memory.  q, k
+    and v are [..., :160] views of [B, S, H, 192] tensors whose columns
+    160-191 hold NaN; the output is finite and equals the contiguous
+    inputs' output bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(160)
+    wide = []
+    for s, h in ((300, 8), (270, 2), (270, 2)):
+        x = torch.randn((2, s, h, 192), generator=gen, device=cuda)
+        x[..., 160:] = float("nan")
+        wide.append(x.to(torch.bfloat16))
+    q, k, v = (x[..., :160].transpose(1, 2) for x in wide)
+    before = launch_counts()
+    got = fa_kernel.flash_attention_kernel(q, k, v, causal)
+    _assert_one_launch(before, "wgmma")
+    assert bool(torch.isfinite(got).all())
+    dense = fa_kernel.flash_attention_kernel(
+        *(x.contiguous() for x in (q, k, v)), causal)
+    torch.testing.assert_close(got, dense, rtol=0, atol=0)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
+
+
 def test_flash_attention_grad_on_the_card(cuda):
     """Forward on K5, backward through attention_ref: the gradient equals
     autograd of the plain version."""
@@ -371,18 +399,19 @@ def test_flash_attention_grad_on_the_card(cuda):
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
 
 
-def test_flash_attention_wgmma_rejects_unaligned(cuda):
+@pytest.mark.parametrize("d", [64, 160])
+def test_flash_attention_wgmma_rejects_unaligned(cuda, d):
     """TMA reads only 16-byte aligned rows and bases: an input without
     them raises ValueError, launches nothing, and never falls back."""
     gen = torch.Generator(device=cuda).manual_seed(11)
-    wide = torch.randn((1, 2, 100, 68), generator=gen,
+    wide = torch.randn((1, 2, 100, d + 4), generator=gen,
                        device=cuda).to(torch.bfloat16)
-    k = torch.randn((1, 1, 100, 64), generator=gen,
+    k = torch.randn((1, 1, 100, d), generator=gen,
                     device=cuda).to(torch.bfloat16)
-    flat = torch.randn(1 + 2 * 100 * 64, generator=gen,
+    flat = torch.randn(1 + 2 * 100 * d, generator=gen,
                        device=cuda).to(torch.bfloat16)
-    # rows 136 bytes apart; a base 2 bytes off
-    for q in (wide[..., :64], flat[1:].view(1, 2, 100, 64)):
+    # rows 2 d + 8 bytes apart; a base 2 bytes off
+    for q in (wide[..., :d], flat[1:].view(1, 2, 100, d)):
         before = launch_counts()
         with pytest.raises(ValueError, match="TMA"):
             fa_kernel.flash_attention_kernel(q, k, k, True)

@@ -18,7 +18,10 @@ P split into hi + lo (max abs error 7.7e-3).
 Here a test-local torch emulation of that arithmetic must pass the same
 limit at small seeded inputs, and with P rounded once it must not (at
 [1, 4, 256, 64], kv heads 2, causal: 7,837 of 65,536 outputs over the
-limit).  It runs no kernel; the card's tests do.
+limit).  At D 160 the kernel's tiles are 192 columns wide (three
+64-column boxes, the last zero-filled past column 160 by TMA); the
+emulation pads q, k and v with zeros to that width as the kernel does.
+It runs no kernel; the card's tests do.
 """
 import math
 
@@ -33,6 +36,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 NEG_INF = -1e30
 BLOCK_KV = 64
+BOX = 64                           # columns of one swizzled TMA box
 RTOL, ATOL = 2.0 ** -8, 1e-4       # the kernel's bf16 limit
 
 
@@ -40,28 +44,39 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _exp2_ftz(x: torch.Tensor) -> torch.Tensor:
+    """2^x with subnormal results flushed to 0, as ex2.approx.ftz."""
+    y = torch.exp2(x)
+    return torch.where(y < 2.0 ** -126, 0.0, y)
+
+
 def emulate_wgmma_flash(q, k, v, causal: bool, split_p: bool = True):
     """The tensor-core variant's arithmetic, tile by tile, in float32 on
-    bf16-valued inputs: unscaled float32 scores, masks at -1e30 (keys
-    past Skv always, keys above the row when causal), running max m,
-    exp2 with scale * log2(e) folded in, the dead-row guard, float32 l
+    bf16-valued inputs: D padded with zero columns to whole 64-column
+    boxes, unscaled float32 scores, masks at -1e30 (keys past Skv
+    always, keys above the row when causal), running max m, exp2 with
+    scale * log2(e) folded in (the scale of D, not of the padded width)
+    and subnormal results flushed to 0, the dead-row guard, float32 l
     and rescale, P V with P as bf16 hi + lo (or rounded once when
-    ``split_p`` is False), output O / max(l, 1e-30) rounded to bf16."""
+    ``split_p`` is False), output O / max(l, 1e-30) rounded to bf16, the
+    columns below D kept."""
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     g = h // kh
     c = (1.0 / math.sqrt(d)) * math.log2(math.e)
-    qf = q.float()
-    kf = k.float().repeat_interleave(g, dim=1)
-    vf = v.float().repeat_interleave(g, dim=1)
+    pad = (0, -d % BOX)
+    qf = torch.nn.functional.pad(q.float(), pad)
+    kf = torch.nn.functional.pad(k.float(), pad).repeat_interleave(g, dim=1)
+    vf = torch.nn.functional.pad(v.float(), pad).repeat_interleave(g, dim=1)
+    w = qf.shape[-1]
     rows = torch.arange(sq)[:, None]
     m = torch.full((b, h, sq), NEG_INF)
     l = torch.zeros((b, h, sq))
-    o = torch.zeros((b, h, sq, d))
+    o = torch.zeros((b, h, sq, w))
     for lo in range(0, skv, BLOCK_KV):
         keys = torch.arange(lo, lo + BLOCK_KV)[None, :]
-        kt = torch.zeros((b, h, BLOCK_KV, d))
-        vt = torch.zeros((b, h, BLOCK_KV, d))
+        kt = torch.zeros((b, h, BLOCK_KV, w))
+        vt = torch.zeros((b, h, BLOCK_KV, w))
         n = min(BLOCK_KV, skv - lo)
         kt[:, :, :n], vt[:, :, :n] = kf[:, :, lo:lo + n], vf[:, :, lo:lo + n]
         s = qf @ kt.transpose(-1, -2)
@@ -73,8 +88,8 @@ def emulate_wgmma_flash(q, k, v, causal: bool, split_p: bool = True):
         dead = m_new <= NEG_INF / 2
         mc = torch.where(dead, 0.0, m_new * c)
         p = torch.where(dead[..., None], 0.0,
-                        torch.exp2(s * c - mc[..., None]))
-        corr = torch.where(dead, 1.0, torch.exp2(m * c - mc))
+                        _exp2_ftz(s * c - mc[..., None]))
+        corr = torch.where(dead, 1.0, _exp2_ftz(m * c - mc))
         l = l * corr + p.sum(-1)
         hi = _bf16(p)
         pv = hi @ vt
@@ -82,7 +97,8 @@ def emulate_wgmma_flash(q, k, v, causal: bool, split_p: bool = True):
             pv = pv + _bf16(p - hi) @ vt
         o = o * corr[..., None] + pv
         m = m_new
-    return (o / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+    out = (o / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+    return out[..., :d]
 
 
 def _inputs(seed, b, h, kh, sq, skv, d):
@@ -94,7 +110,8 @@ def _inputs(seed, b, h, kh, sq, skv, d):
 
 @pytest.mark.parametrize("b,h,kh,sq,skv,d", [(1, 4, 2, 256, 256, 64),
                                              (1, 4, 1, 200, 150, 64),
-                                             (1, 6, 1, 130, 300, 128)])
+                                             (1, 6, 1, 130, 300, 128),
+                                             (1, 8, 2, 200, 170, 160)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_split_p_emulation_holds_the_kernel_limit(b, h, kh, sq, skv, d,
                                                   causal):

@@ -83,6 +83,8 @@ def _close(got, want, **tol):
     (1, 2, 2, 200, 200, 16, True),      # ragged (the reference pads)
     (2, 4, 1, 100, 77, 16, False),      # ragged non-causal (reference: ref)
     (1, 4, 2, 64, 192, 16, False),      # kv longer than q
+    (1, 4, 2, 200, 200, 160, True),     # pixtral's head dim, GQA, ragged
+    (1, 2, 1, 100, 77, 160, False),     # head dim 160, ragged non-causal
 ])
 def test_flash_attention_matches_reference(b, h, kh, sq, skv, d, causal):
     rng = np.random.default_rng(sq + skv)
@@ -99,6 +101,17 @@ def test_flash_attention_matches_reference(b, h, kh, sq, skv, d, causal):
     bshd = p_fa_ops.flash_attention_bshd(
         *(torch.as_tensor(x).transpose(1, 2) for x in (q, k, v)), causal)
     _close(bshd.transpose(1, 2), want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_variant_by_input():
+    """The tensor-core variant takes bf16 at D 64, 128 and 160 (pixtral's
+    head dim); float32, and bf16 at any other D, take the SIMT one."""
+    assert p_fa_kernel.WGMMA_HEAD_DIMS == (64, 128, 160)
+    for d in (64, 128, 160):
+        assert p_fa_kernel.variant(torch.bfloat16, d) == "wgmma"
+        assert p_fa_kernel.variant(torch.float32, d) == "simt"
+    for d in (16, 96, 192, 256):
+        assert p_fa_kernel.variant(torch.bfloat16, d) == "simt"
 
 
 def test_flash_attention_causal_q_longer_than_ragged_kv():
