@@ -88,15 +88,28 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   popsearch configuration through ``submit_search`` (the direct run's
   winner and cost); a corrupt fused total healed inside the pool and
   corrupt banks served by the grouped oracle until the recovery probe.
+* ``train`` (last): qwen2-1.5b at its published widths and depth (float32
+  parameters, bf16 compute, remat, flash attention) trained 8 steps of 4 x
+  2,048 tokens through ``repro_torch.launch.train.train``, a checkpoint
+  every 4 steps into a temporary directory, then resumed from the step-4
+  checkpoint to step 8 (the resumed losses bit for bit the uninterrupted
+  run's).  Before the run, its first step on the same state and batch
+  against the plain attention path (float32 compute: loss and grad_norm
+  within 1e-4 relative; bf16: the gradient no further, by rms, from the
+  float32 plain gradient than 1.25x the bf16 plain path's), and one step
+  counted and traced (K5 56 times, forward and remat recompute, every
+  launch its tensor-core variant).  Records the step's host seconds
+  (median of steps 2-8), tokens/s, device ms, launches, K5's share, the
+  card's busy share, the step's share of the bf16 peak and peak memory.
 
 Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
 ``--only whatif`` runs the whatif phase alone, ``--only stores`` times
-K1 and the bloom_probe op at the kvstore shapes, and ``--only k5`` times
-K5 beside SDPA at the lm phase's shape and each family's; they print no
-result line.
+K1 and the bloom_probe op at the kvstore shapes, ``--only k5`` times K5
+beside SDPA at the lm phase's shape and each family's, and ``--only
+train`` runs the train phase alone; they print no result line.
 """
 from __future__ import annotations
 
@@ -1128,10 +1141,16 @@ def _profile(fn, steps: int, watch: str = "", spans=()) -> dict:
         out[f"span_{name}_host_ms_per_step"] = sum(
             e.cpu_time_total for e in hits) / 1e3 / steps
     if watch:
-        each = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+        hits = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and watch in e.name]
+        each = [e.time_range.elapsed_us() / 1e3 for e in hits]
         out[f"{watch}_launches_per_step"] = len(each) / steps
+        out[f"{watch}_kernels"] = {}
+        for e in hits:
+            name = e.name[:80]
+            out[f"{watch}_kernels"][name] = \
+                out[f"{watch}_kernels"].get(name, 0) + 1
         out[f"{watch}_ms_per_step"] = sum(each) / steps
         out[f"{watch}_ms_each"] = each
     return out
@@ -1839,6 +1858,247 @@ def phase_families(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train: qwen2-1.5b trained on the card through repro_torch.launch.train
+# ---------------------------------------------------------------------------
+#: 4 sequences of 2,048 tokens a step, 8 steps, a checkpoint every 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 8, 4
+#: the first step, float32 compute, flash (K5's SIMT variant) against the
+#: plain chunked path: loss and grad_norm within this relative distance
+#: (the paths differ only in the attention forward's float32 summation
+#: order, ~1e-6 relative an output)
+TRAIN_F32_RTOL = 1e-4
+#: bf16 compute: the flash step's gradient no further (rms) from the
+#: float32 plain gradient than this times the bf16 plain step's is (the
+#: lm phase's witness)
+TRAIN_BF16_RATIO = 1.25
+
+
+def _grads_rms(a, b) -> float:
+    """rms over every entry of two gradient trees."""
+    from repro_torch.optim.adamw import tree_leaves
+    sq, n = 0.0, 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        sq += float((x.float() - y.float()).pow(2).sum())
+        n += x.numel()
+    return math.sqrt(sq / n)
+
+
+def _grad_norm(grads) -> float:
+    from repro_torch.optim.adamw import tree_leaves
+    return math.sqrt(sum(float(g.float().pow(2).sum())
+                         for g in tree_leaves(grads)))
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one step, recompute not counted: 6 N T for the
+    matrix products of the parameters (the tied embedding's one product
+    included) plus the causal attention products, forward 4 B H D x the
+    (row, key) pairs the mask keeps a layer, backward twice that."""
+    attn = 4 * batch * cfg.n_heads * cfg.resolved_head_dim * \
+        _causal_pairs(seq, seq) * cfg.n_layers
+    return 6.0 * n_params * batch * seq + 3.0 * attn
+
+
+def _first_step(cfg, state, batch, checks: Checks) -> dict:
+    """The run's first step against the plain attention path, on the same
+    state and batch: float32 compute (flash's SIMT variant vs the chunked
+    path) loss and grad_norm within TRAIN_F32_RTOL; bf16 compute (the
+    run's own path, K5's tensor-core variant) by the witness."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build
+    from repro_torch.train.loop import loss_and_grads
+    out, truth = {}, None
+    for dtype in ("float32", "bfloat16"):
+        for impl in ("xla", "flash"):
+            model = build(dataclasses.replace(cfg, attn_impl=impl,
+                                              compute_dtype=dtype))
+            t0 = time.perf_counter()
+            metrics, grads = loss_and_grads(state.params, batch, model)
+            torch.cuda.synchronize()
+            row = {"loss": float(metrics["loss"]),
+                   "grad_norm": _grad_norm(grads),
+                   "s": time.perf_counter() - t0}
+            if truth is None:
+                truth = grads
+            else:
+                row["grad_rms_vs_float32_plain"] = _grads_rms(grads, truth)
+            out[f"{dtype}_{impl}"] = row
+            del grads
+    torch.cuda.synchronize()
+    f, p = out["float32_flash"], out["float32_xla"]
+    for key in ("loss", "grad_norm"):
+        rel = abs(f[key] - p[key]) / abs(p[key])
+        out[f"float32_{key}_rel"] = rel
+        checks.expect(rel <= TRAIN_F32_RTOL,
+                      f"train first step, float32 flash vs plain {key}: "
+                      f"{f[key]!r} vs {p[key]!r} ({rel:.2e} > "
+                      f"{TRAIN_F32_RTOL})")
+    bf, bp = out["bfloat16_flash"], out["bfloat16_xla"]
+    out["bf16_ratio"] = (bf["grad_rms_vs_float32_plain"] /
+                         bp["grad_rms_vs_float32_plain"])
+    checks.expect(out["bf16_ratio"] <= TRAIN_BF16_RATIO,
+                  f"train first step: bf16 flash gradient further from "
+                  f"float32 than the plain path's: {out}")
+    return out
+
+
+def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
+    """One whole train step, counted and traced: K5's launches by the
+    counters and by the kernels the trace holds (every one the
+    tensor-core variant), the step's device time and K5's share."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build
+    from repro_torch.train.loop import make_train_step
+    step = make_train_step(build(cfg), run)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    step(state, batch)                        # counted, and warms the trace
+    torch.cuda.synchronize()
+    counted = _k5_moved({}, launch_counts())
+    want = 2 * cfg.n_layers
+    checks.expect(counted.get("flash_attention") == want and
+                  counted.get("flash_attention_wgmma") == want and
+                  counted.get("flash_attention_simt") == 0,
+                  f"train step: K5 launches {counted}, expected {want}, "
+                  f"all wgmma")
+    prof = _profile(lambda: step(state, batch), 1, watch="flash")
+    each = prof.pop("flash_ms_each")
+    traced = prof["flash_launches_per_step"]
+    # the trace's names: tc::flash_wgmma_kernel<D>, simt::flash_kernel
+    names = prof.pop("flash_kernels")
+    wgmma = sum(n for name, n in names.items() if "flash_wgmma" in name)
+    checks.expect(traced == want and wgmma == want,
+                  f"train step: the trace holds {traced} K5 kernels, "
+                  f"{wgmma} of them flash_wgmma, expected {want}: {names}")
+    return {"k5_counted": counted, "k5_traced": traced,
+            "k5_traced_wgmma": wgmma, "k5_traced_names": names,
+            "k5_traced_ms_mean": sum(each) / max(len(each), 1),
+            "k5_ms_per_step": prof["flash_ms_per_step"],
+            "k5_share_of_device": (prof["flash_ms_per_step"] /
+                                   prof["device_ms_per_step"]),
+            "profile_step": prof}
+
+
+def phase_train(seed: int) -> dict:
+    """qwen2-1.5b at its published widths and depth (float32 parameters,
+    bf16 compute, remat, flash attention) trained TRAIN_STEPS steps of
+    4 x 2,048 tokens through ``repro_torch.launch.train.train`` with a
+    checkpoint every TRAIN_CKPT_EVERY, then resumed from the step-4
+    checkpoint to step 8: the resumed losses equal the uninterrupted
+    run's bit for bit.  Before it, its first step held against the plain
+    attention path and one step counted and traced.  Every check runs
+    before the phase fails on any."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import init_state
+    cfg = dataclasses.replace(qwen2_1_5b.config(), attn_impl="flash")
+    shape = ShapeConfig("chip_smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    run = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=1, seed=seed,
+                    checkpoint_every=TRAIN_CKPT_EVERY, checkpoint_dir=ckpt,
+                    log_every=1)
+    checks = Checks()
+    out = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": f"{cfg.n_heads}/{cfg.n_kv_heads}",
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "remat": cfg.remat, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "checkpoint_every": TRAIN_CKPT_EVERY,
+           "disk_free_gb": shutil.disk_usage(ckpt).free / 1e9}
+    try:
+        _free()
+        t0 = time.perf_counter()
+        state = init_state(build(cfg), seed, DEVICE)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tree_leaves(state.params))
+        out["params"] = n_params
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in make_batch(cfg, shape, 0, seed).items()}
+        t0 = time.perf_counter()
+        out["first_step"] = _first_step(cfg, state, batch, checks)
+        out["first_step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out.update(_traced_step(cfg, state, batch, run, checks))
+        out["traced_step_s"] = time.perf_counter() - t0
+        out["checks_peak_gb"] = _peak_gb()
+        del state, batch
+        _free()
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        full = train(cfg, shape, run, log=log)
+        out["run_s"] = time.perf_counter() - t0
+        out["run_launches"] = _k5_moved({}, launch_counts())
+        out["peak_gb"] = _peak_gb()
+        steps = sorted(n for n in os.listdir(ckpt) if n.startswith("step_"))
+        out["checkpoints"] = steps
+        # the crash: the step-8 checkpoint never landed; resume from 4
+        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}"))
+        _free()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = train(cfg, shape, run, log=log)
+        out["resume_s"] = time.perf_counter() - t0
+        out["resume_launches"] = _k5_moved({}, launch_counts())
+        out["resume_peak_gb"] = _peak_gb()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = full["losses"]
+    out.update({"losses": losses, "step_s": full["step_s"],
+                "save_s": full["save_s"], "health": full["health"],
+                "resumed_losses": resumed["losses"],
+                "resumed_start": resumed["start_step"],
+                "resumed_step_s": resumed["step_s"],
+                "resumed_save_s": resumed["save_s"]})
+    step_s = float(np.median(full["step_s"][1:]))
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    out.update({"step_s_median": step_s,
+                "tokens_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+                "model_flops": flops,
+                "bf16_peak_share": flops / (step_s * BF16_TC_OPS_PER_S),
+                "device_ms_per_step":
+                    out["profile_step"]["device_ms_per_step"],
+                "device_busy_share":
+                    out["profile_step"]["device_ms_per_step"] /
+                    (step_s * 1e3)})
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_wgmma": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_simt": 0}
+    checks.expect(out["run_launches"] == want,
+                  f"train run: K5 launches {out['run_launches']}, "
+                  f"expected {want}")
+    checks.expect(len(losses) == TRAIN_STEPS and
+                  all(math.isfinite(x) for x in losses),
+                  f"train run: losses {losses}")
+    checks.expect(losses[0] == out["first_step"]["bfloat16_flash"]["loss"],
+                  f"train run: first loss {losses[0]!r} is not the first "
+                  f"step's {out['first_step']['bfloat16_flash']['loss']!r}")
+    checks.expect(out["checkpoints"] == [f"step_{TRAIN_CKPT_EVERY:08d}",
+                                         f"step_{TRAIN_STEPS:08d}"],
+                  f"train run: checkpoints {out['checkpoints']}")
+    checks.expect(resumed["start_step"] == TRAIN_CKPT_EVERY and
+                  resumed["losses"] == losses[TRAIN_CKPT_EVERY:],
+                  f"resumed run from step {resumed['start_step']}: losses "
+                  f"{resumed['losses']} vs {losses[TRAIN_CKPT_EVERY:]}")
+    out["failures"] = checks.failures
+    log("train: " + json.dumps(out))
+    checks.raise_any()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernels: each kernel against its plain version, with times and bounds
 # ---------------------------------------------------------------------------
 def _ragged_k0(rng):
@@ -2541,12 +2801,14 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
-    parser.add_argument("--only", choices=["whatif", "stores", "k5"],
+    parser.add_argument("--only", choices=["whatif", "stores", "k5",
+                                           "train"],
                         default=None,
                         help="whatif: run that phase alone, without the "
                              "check of its launches; stores: time K1 and "
                              "the bloom_probe op at the kvstore shapes; k5: "
-                             "time K5 and SDPA at the lm and family shapes.  "
+                             "time K5 and SDPA at the lm and family shapes; "
+                             "train: the train phase alone.  "
                              "Each prints its report but no kernels line "
                              "and no result line (to time an older "
                              "checkout's src/ with this script)")
@@ -2570,7 +2832,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     names = {"stores": [n for n in build.SOURCES if n != "flash_attention"],
-             "k5": ["flash_attention"]}.get(args.only, list(build.SOURCES))
+             "k5": ["flash_attention"],
+             "train": ["flash_attention"]}.get(args.only,
+                                               list(build.SOURCES))
     build.build(names)
     report["nvcc_build_s"] = time.perf_counter() - t0
     for name in names:
@@ -2589,6 +2853,11 @@ def main(argv=None) -> int:
         report["k5"] = only_k5(args.seed)
         for row in report["k5"]:
             log("k5: " + json.dumps(row))
+        _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
+    if args.only == "train":
+        report["train"] = phase_train(args.seed)
         _write_report(args.report, report)
         log(_nvidia_smi())
         return 0
@@ -2681,6 +2950,19 @@ def main(argv=None) -> int:
                                           "encode_s", "decode_tok_s",
                                           "peak_gb", "phase_s")
             if isinstance(res.get(k), float)))
+
+    t0 = time.perf_counter()
+    report["train"] = phase_train(args.seed)
+    report["train_phase_s"] = time.perf_counter() - t0
+    tr = report["train"]
+    log(f"train: {tr['step_s_median']:.4f} s a step (median of steps 2-"
+        f"{TRAIN_STEPS}), {tr['tokens_s']:.0f} tokens/s, "
+        f"{tr['bf16_peak_share']:.4f} of the bf16 peak, device "
+        f"{tr['device_ms_per_step']:.1f} ms a step in "
+        f"{tr['profile_step']['launches_per_step']:.0f} launches (busy "
+        f"{tr['device_busy_share']:.3f}), K5 {tr['k5_share_of_device']:.4f} "
+        f"of it in {tr['k5_traced']:.0f} launches, peak "
+        f"{tr['peak_gb']:.1f} GB, phase {report['train_phase_s']:.1f} s")
     seamless = fam["seamless-m4t-large-v2"]
     kernels[5]["launches_by_path"] = {
         "lm qwen2-1.5b prefill": kernels[5]["launches"],
@@ -2689,7 +2971,19 @@ def main(argv=None) -> int:
         "seamless encode": seamless["encode_k5_launches"],
         "seamless forward": seamless["forward_k5_launches"],
         "seamless prefill_cross": seamless["prefill_cross_k5_launches"],
-        "pixtral prefill": fam["pixtral-12b"]["k5_launches"]}
+        "pixtral prefill": fam["pixtral-12b"]["k5_launches"],
+        "qwen2-1.5b train step (forward and remat recompute)":
+            tr["k5_counted"],
+        f"qwen2-1.5b train, {TRAIN_STEPS} steps": tr["run_launches"],
+        f"qwen2-1.5b train, resumed at step {TRAIN_CKPT_EVERY}":
+            tr["resume_launches"]}
+    kernels[5]["train_path"] = {
+        "shape": f"[{TRAIN_BATCH},{12},{TRAIN_SEQ},128] kv_heads=2 bf16 "
+                 f"causal (the lm row's shape)",
+        "launches_per_step": tr["k5_traced"],
+        "traced_ms_mean": tr["k5_traced_ms_mean"],
+        "ms_per_step": tr["k5_ms_per_step"],
+        "share_of_step_device_time": tr["k5_share_of_device"]}
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

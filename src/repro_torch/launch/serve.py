@@ -31,11 +31,6 @@ from repro_torch.models import build
 from repro_torch.train.serve import greedy_sample, make_serve_step, prefill
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 #: source positions of the encoder-decoder's (all-zero) cross-attention
 #: cache when it is served by stepping, as in the reference
 AUDIO_SRC_LEN = 8
@@ -69,10 +64,10 @@ def serve_batch(cfg, prompts: np.ndarray, max_new: int, *,
         embeds = torch.as_tensor(embeds, device=dev)
     kw = {"src_len": AUDIO_SRC_LEN} if cfg.family == "audio" else {}
 
-    _sync(dev)
+    runtime.synchronize(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(model, params, prompt, max_len, embeds, **kw)
-    _sync(dev)
+    runtime.synchronize(dev)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits
 
@@ -85,7 +80,7 @@ def serve_batch(cfg, prompts: np.ndarray, max_new: int, *,
         pos = pos + 1
         token = greedy_sample(logits)
         out.append(token)
-    _sync(dev)
+    runtime.synchronize(dev)
     decode_s = time.perf_counter() - t0
 
     tokens = torch.stack(out, dim=1).cpu().numpy()

@@ -10,6 +10,8 @@ stacked axis and keeps its structure.  :func:`params_from_reference` maps
 the one onto the other, so both packages can compute with the same
 weights (the tests do this; the port's own ``init`` draws from a
 ``torch.Generator``, whose stream differs from ``jax.random``'s).
+:func:`state_from_reference` carries a whole training state (parameters
+and AdamW moments) the same way.
 """
 from __future__ import annotations
 
@@ -80,3 +82,20 @@ def _leaves(node):
             yield from _leaves(v)
     else:
         yield node
+
+
+def state_from_reference(state, cfg: ArchConfig, device=None):
+    """The reference's ``TrainState`` (``params``, ``opt`` with ``step``,
+    ``mu``, ``nu``; numpy arrays or anything ``np.asarray`` takes) as the
+    port's :class:`repro_torch.train.loop.TrainState` on ``device``.
+    The moments share the parameters' tree, so they unstack alike; values
+    and dtypes are kept bit for bit."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.loop import TrainState
+    dev = runtime.device(device)
+    opt = state.opt
+    return TrainState(
+        params_from_reference(state.params, cfg, dev),
+        AdamWState(_tensor(np.asarray(opt.step), dev),
+                   params_from_reference(opt.mu, cfg, dev),
+                   params_from_reference(opt.nu, cfg, dev)))

@@ -28,8 +28,7 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     (see ``transformer.init_params``)."""
     dev = runtime.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     pd = cfg.pdtype()
 
     def enc_layer():
@@ -60,17 +59,24 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=x.device)[None].expand(b, s)
 
 
+def _enc_layer(layer: Params, x: torch.Tensor, cfg: ArchConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    x = x + L.attention(layer["attn"],
+                        L.rmsnorm(layer["ln1"], x, cfg.norm_eps),
+                        cfg, positions, causal=False)
+    return x + L.mlp(layer["mlp"],
+                     L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
+
+
 def encode(params: Params, src_embeds: torch.Tensor, cfg: ArchConfig
            ) -> torch.Tensor:
-    """Source frames [B, S_src, D] -> the normed encoder output."""
+    """Source frames [B, S_src, D] -> the normed encoder output.  Each
+    layer is rematerialized in training under ``cfg.remat``."""
     x = src_embeds.to(cfg.cdtype())
     positions = _positions(x)
+    body = L.remat(_enc_layer) if cfg.remat else _enc_layer
     for layer in params["encoder"]:
-        x = x + L.attention(layer["attn"],
-                            L.rmsnorm(layer["ln1"], x, cfg.norm_eps),
-                            cfg, positions, causal=False)
-        x = x + L.mlp(layer["mlp"],
-                      L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
+        x = body(layer, x, cfg, positions)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -84,6 +90,14 @@ def _dec_layer(layer: Params, x: torch.Tensor, enc_kv, cfg: ArchConfig,
                         cfg, positions, kv=enc_kv)
     return x + L.mlp(layer["mlp"],
                      L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
+
+
+def _dec_body(layer: Params, x: torch.Tensor, enc_out: torch.Tensor,
+              cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
+    """A decoder layer with its cross-attention K/V from ``enc_out`` (the
+    reference's rematerialized scan body)."""
+    return _dec_layer(layer, x, _cross_kv(layer, enc_out, cfg), cfg,
+                      positions)
 
 
 def _cross_kv(layer: Params, enc_out: torch.Tensor, cfg: ArchConfig):
@@ -111,9 +125,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     x = L.embed(params["embed"], tokens, cfg)
     if positions is None:
         positions = _positions(x)
+    body = L.remat(_dec_body) if cfg.remat else _dec_body
     for layer in params["decoder"]:
-        x = _dec_layer(layer, x, _cross_kv(layer, enc_out, cfg), cfg,
-                       positions)
+        x = body(layer, x, enc_out, cfg, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hidden:

@@ -31,8 +31,7 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     (see ``transformer.init_params``)."""
     dev = runtime.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     layers = [{"ln": L.init_rmsnorm(cfg.d_model, cfg.pdtype(), dev),
                "mamba": S.init_mamba2(gen, cfg, dev)}
               for _ in range(cfg.n_layers)]
@@ -59,6 +58,16 @@ def _shared_block(shared: Params, x: torch.Tensor, cfg: ArchConfig,
                      L.rmsnorm(shared["ln2"], x, cfg.norm_eps), cfg)
 
 
+def _layer(layer: Params, shared: Params, x: torch.Tensor, cfg: ArchConfig,
+           positions: torch.Tensor, with_shared: bool) -> torch.Tensor:
+    """One Mamba2 layer, then the shared block where ``with_shared``."""
+    x = x + S.mamba2_forward(layer["mamba"],
+                             L.rmsnorm(layer["ln"], x, cfg.norm_eps), cfg)
+    if with_shared:
+        x = _shared_block(shared, x, cfg, positions)
+    return x
+
+
 def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
@@ -71,12 +80,9 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     k = max(cfg.shared_attn_every, 1)
+    body = L.remat(_layer) if cfg.remat else _layer
     for i, layer in enumerate(params["layers"]):
-        x = x + S.mamba2_forward(layer["mamba"],
-                                 L.rmsnorm(layer["ln"], x, cfg.norm_eps),
-                                 cfg)
-        if i % k == 0:
-            x = _shared_block(params["shared"], x, cfg, positions)
+        x = body(layer, params["shared"], x, cfg, positions, i % k == 0)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hidden:

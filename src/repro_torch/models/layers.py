@@ -6,7 +6,8 @@ reference's keys and shapes.  A layer stack is a Python list of per-layer
 dicts, and the reference's ``scan_layers`` (``lax.scan`` over a stacked
 leading axis) becomes a loop over that list in the callers.  The
 reference's ``ctx.constrain_*`` sharding hints are the identity on one
-device and are left out; the port's ``parallel/`` brings them back.
+device and are left out here; ``repro_torch.parallel.ctx`` has them, for
+the multi-device slice to wire in.
 """
 from __future__ import annotations
 
@@ -15,10 +16,32 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
 Params = Dict[str, Any]
+
+
+def generator(seed: int, device: torch.device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; on the
+    meta device (shapes without storage) one on the CPU, which draws
+    nothing there."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def remat(fn):
+    """``fn`` rematerialized (the reference's ``jax.checkpoint``): its
+    activations are recomputed in the backward pass instead of kept.
+    Only while autograd records; a forward under ``no_grad`` (serving)
+    runs ``fn`` as it is."""
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype,

@@ -4,8 +4,10 @@
 Parameters are the reference's tree with the stacked layer axis unrolled
 into a list of per-layer dicts, and the layer scan is a loop over it.
 A VLM (pixtral) is this model with patch embeddings (``embeds``) in front
-of the tokens.  ``cfg.remat`` only matters to training and is ignored
-here.
+of the tokens.  ``cfg.remat`` rematerializes each layer of the
+full-sequence forward in the backward pass (``layers.remat``, the
+reference's ``jax.checkpoint``), while autograd records; under ``remat``
+kernel K5 runs twice a layer in a training step.
 """
 from __future__ import annotations
 
@@ -41,8 +43,7 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     cannot be replayed, so weights that must equal the reference's come
     through :func:`repro_torch.models.convert.params_from_reference`."""
     dev = runtime.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     layers = [init_layer(gen, cfg, dev) for _ in range(cfg.n_layers)]
     return {
         "embed": L.init_embed(gen, cfg, dev),
@@ -94,8 +95,9 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = L.remat(layer_forward) if cfg.remat else layer_forward
     for layer in params["layers"]:
-        x, layer_aux = layer_forward(layer, x, cfg, positions)
+        x, layer_aux = body(layer, x, cfg, positions)
         if layer_aux is not None:
             aux = aux + layer_aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

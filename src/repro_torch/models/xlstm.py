@@ -30,8 +30,7 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     (see ``transformer.init_params``)."""
     dev = runtime.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = L.generator(seed, dev)
     blocks = []
     for kind in layer_kinds(cfg):
         init = S.init_slstm if kind == "slstm" else S.init_mlstm
@@ -44,6 +43,13 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
     }
 
 
+def _block(block: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = L.rmsnorm(block["ln"], x, cfg.norm_eps)
+    if "slstm" in block:
+        return x + S.slstm_forward(block["slstm"], h, cfg)
+    return x + S.mlstm_forward(block["mlstm"], h, cfg)
+
+
 def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
@@ -53,12 +59,9 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
     (no attention), as in the reference."""
     x = L.embed(params["embed"], tokens, cfg) if embeds is None else \
         embeds.to(cfg.cdtype())
+    body = L.remat(_block) if cfg.remat else _block
     for block in params["blocks"]:
-        h = L.rmsnorm(block["ln"], x, cfg.norm_eps)
-        if "slstm" in block:
-            x = x + S.slstm_forward(block["slstm"], h, cfg)
-        else:
-            x = x + S.mlstm_forward(block["mlstm"], h, cfg)
+        x = body(block, x, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hidden:

@@ -49,6 +49,13 @@ def use_device(dev: Optional[DeviceLike]) -> Iterator[torch.device]:
             _CHOSEN = previous
 
 
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for on the
+    CPU), so a host clock read after it times the work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def device(explicit: Optional[DeviceLike] = None) -> torch.device:
     """The device an entry point runs on.
 

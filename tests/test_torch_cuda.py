@@ -399,6 +399,39 @@ def test_flash_attention_grad_on_the_card(cuda):
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,sq,dtype", [(4, 2048, torch.bfloat16),
+                                         (1, 512, torch.bfloat16),
+                                         (1, 512, torch.float32)])
+def test_flash_attention_training_shape_forward_and_backward(cuda, b, sq,
+                                                             dtype):
+    """qwen2-1.5b's training attention, ``[B, 12/2, S, 128]`` causal in the
+    model's [B, S, H, D] layout (the full step's shape first): the forward
+    on K5 (``wgmma`` in bf16) within the kernel tests' tolerance of
+    attention_ref in float32, one launch; the backward, attention_ref's
+    pullback, equal to autograd of the plain version on the same inputs
+    within 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + b)
+    xs = [torch.randn((b, sq, h, 128), generator=gen, device=cuda).to(dtype)
+          for h in (12, 2, 2)]
+    w = torch.randn((b, sq, 12, 128), generator=gen, device=cuda).to(dtype)
+    a = [x.clone().requires_grad_(True) for x in xs]
+    before = launch_counts()
+    out = fa_ops.flash_attention_bshd(*a, causal=True)
+    _assert_one_launch(before, fa_kernel.variant(dtype, 128))
+    ref = [x.clone().requires_grad_(True) for x in xs]
+    want = attention_ref(*(x.transpose(1, 2) for x in ref),
+                         causal=True).transpose(1, 2)
+    exact = attention_ref(*(x.float().transpose(1, 2) for x in xs),
+                          causal=True).transpose(1, 2)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
+           dict(rtol=2.0 ** -8, atol=1e-4))
+    torch.testing.assert_close(out.float(), exact, **tol)
+    (out * w).sum().backward()
+    (want * w).sum().backward()
+    for x, y in zip(a, ref):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("d", [64, 160])
 def test_flash_attention_wgmma_rejects_unaligned(cuda, d):
     """TMA reads only 16-byte aligned rows and bases: an input without
