@@ -101,6 +101,21 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   launch its tensor-core variant).  Records the step's host seconds
   (median of steps 2-8), tokens/s, device ms, launches, K5's share, the
   card's busy share, the step's share of the bf16 peak and peak memory.
+* ``distcalc`` (after train, from the run's own measurements):
+  ``repro_torch.core.distcalc`` on ``H100_SXM`` and a one-chip
+  ``MeshSpec(1, 1, 1)`` predicts every cell the run measured (the train
+  step with its own strategy, the lm prefill and decode step, each
+  family's prefill or forward and decode step): the three roofline terms,
+  the dominant one, the measured seconds and their ratio on a line each;
+  then the train cell's what-if, ``complete_strategy``'s remat-off
+  strategy run on the card for WHATIF_STEPS steps (no checkpoints): its
+  step seconds, peak memory, K5's launches (28 a step, all ``wgmma``) and
+  whether the card orders the two strategies as predicted.  Checks: every
+  prediction finite and positive with ``step_seconds`` its largest term,
+  the chosen strategy valid and fitting, ``fits_memory`` false for the
+  three configs one card cannot hold and true for the six it runs.  The
+  kernels phase also times the attention backward (the plain pullback
+  the port runs, and one SDPA backward) at the lm shape.
 
 Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
@@ -126,12 +141,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor),
-#: bf16 dense tensor cores; INT32 throughput from the Hopper white paper:
-#: 64 INT32 lanes per SM x 132 SMs x the 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.core.hardware import H100_SXM  # noqa: E402
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and bf16 dense tensor
+#: cores from ``H100_SXM`` (the profile distcalc predicts with, so the
+#: kernel bounds and the predictions share one source), float32
+#: (non-tensor); INT32 throughput from the Hopper white paper: 64 INT32
+#: lanes per SM x 132 SMs x the 1.98 GHz boost clock
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
 FP32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = 989e12
+BF16_TC_OPS_PER_S = H100_SXM.peak_flops_bf16
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 PEAKS = {"fp32": FP32_OPS_PER_S, "bf16_tensor": BF16_TC_OPS_PER_S,
          "int32": INT32_OPS_PER_S}
@@ -2099,6 +2118,236 @@ def phase_train(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# distcalc: the Distributed Data Calculator's predictions against the run
+# ---------------------------------------------------------------------------
+#: remat-off what-if: steps timed (the first warms, the rest are timed)
+WHATIF_STEPS = 3
+#: configs one card cannot hold, and those the families phase runs
+NOT_ON_ONE_CARD = ("phi3.5-moe-42b-a6.6b", "qwen1.5-32b", "llama3-405b")
+ON_ONE_CARD = ("qwen2-1.5b", "granite-moe-1b-a400m", "zamba2-1.2b",
+               "xlstm-350m", "seamless-m4t-large-v2", "pixtral-12b")
+
+
+def _distcalc_cells(report) -> list:
+    """(cell, arch, shape, strategy, measured seconds) for every cell the
+    run measured: the train step with its own strategy; each prefill or
+    forward and each decode step (measured: the decode loop's seconds
+    over its steps) with the one-card serving strategy (``ep`` on a MoE,
+    as the reference's candidates set it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import distcalc as D
+
+    def serve(arch):
+        return D.Strategy(tp=1, fsdp=False, ep=bool(get_config(arch).moe),
+                          remat=False)
+
+    def shape(seq, kind, batch=FAM_BATCH):
+        return ShapeConfig(kind, seq, batch, kind)
+
+    tr, lm, fam = report["train"], report["lm"], report["families"]
+    cells = [("train step", "qwen2-1.5b", shape(TRAIN_SEQ, "train",
+                                                TRAIN_BATCH),
+              D.Strategy(tp=1, fsdp=False, ep=False, remat=True),
+              tr["step_s_median"]),
+             ("lm prefill", "qwen2-1.5b", shape(LM_PROMPT, "prefill",
+                                                LM_BATCH),
+              serve("qwen2-1.5b"), lm["prefill_s"]),
+             ("lm decode step", "qwen2-1.5b",
+              shape(LM_PROMPT + LM_DECODE, "decode", LM_BATCH),
+              serve("qwen2-1.5b"), lm["decode_s"] / LM_DECODE)]
+    g, p = fam["granite-moe-1b-a400m"], fam["pixtral-12b"]
+    for arch, res in (("granite-moe-1b-a400m", g), ("pixtral-12b", p)):
+        cells += [(f"{arch} prefill", arch, shape(FAM_SEQ, "prefill"),
+                   serve(arch), res["prefill_s"]),
+                  (f"{arch} decode step", arch,
+                   shape(FAM_SEQ + FAM_DECODE, "decode"), serve(arch),
+                   res["decode_s"] / FAM_DECODE)]
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        res = fam[arch]
+        cells += [(f"{arch} forward", arch, shape(FAM_SEQ, "prefill"),
+                   serve(arch), res["forward_s"]),
+                  (f"{arch} decode step", arch,
+                   shape(STEP_PROMPT + STEP_DECODE, "decode"), serve(arch),
+                   res["served"]["decode_s"] / STEP_DECODE)]
+    sm = fam["seamless-m4t-large-v2"]
+    # distcalc sizes an encoder-decoder's source as its target: the
+    # forward is predicted at the 512 targets (the run encodes 1,024)
+    cells += [("seamless-m4t-large-v2 forward", "seamless-m4t-large-v2",
+               shape(TGT_LEN, "prefill"), serve("seamless-m4t-large-v2"),
+               sm["forward_s"]),
+              ("seamless-m4t-large-v2 decode step", "seamless-m4t-large-v2",
+               shape(STEP_DECODE + 1, "decode"),
+               serve("seamless-m4t-large-v2"), sm["decode_s"] / STEP_DECODE)]
+    return cells
+
+
+def _remat_off_steps(seed: int, checks: Checks) -> dict:
+    """qwen2-1.5b at full width and depth, ``remat=False`` (what
+    ``complete_strategy`` picks), WHATIF_STEPS steps of the train phase's
+    batches through ``train_step``, no checkpoints: the steps' host
+    seconds, losses, peak memory and K5's launches (one a layer a step,
+    all on ``wgmma``).  Running out of memory is the finding that the
+    reference's ``fits_memory`` is wrong for the card, not a failure."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build
+    from repro_torch.train.loop import init_state, make_train_step
+    cfg = dataclasses.replace(qwen2_1_5b.config(), attn_impl="flash",
+                              remat=False)
+    shape = ShapeConfig("chip_smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model = build(cfg)
+    step = make_train_step(model, RunConfig(total_steps=TRAIN_STEPS,
+                                            warmup_steps=1, seed=seed))
+    out = {"remat": False, "steps": WHATIF_STEPS}
+    _free()
+    state = None
+    try:
+        state = init_state(model, seed, DEVICE)
+        step_s, losses = [], []
+        reset_launch_counts()
+        for i in range(WHATIF_STEPS):
+            batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+                     make_batch(cfg, shape, i, seed).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        out["k5_launches"] = _k5_moved({}, launch_counts())
+        out["step_s"] = step_s
+        out["step_s_median"] = float(np.median(step_s[1:]))
+        out["losses"] = losses
+        out["fits"] = True
+    except torch.cuda.OutOfMemoryError as exc:
+        out["fits"] = False
+        out["oom"] = str(exc).splitlines()[0]
+        log("distcalc FINDING: qwen2-1.5b's train step with remat off "
+            f"does not fit the card, though fits_memory says it does: "
+            f"{out['oom']}")
+    finally:
+        out["peak_gb"] = _peak_gb()
+        del state
+        _free()
+    if out["fits"]:
+        want = cfg.n_layers * WHATIF_STEPS
+        k5 = out["k5_launches"]
+        checks.expect(k5.get("flash_attention") == want and
+                      k5.get("flash_attention_wgmma") == want and
+                      k5.get("flash_attention_simt") == 0,
+                      f"remat-off steps: K5 launches {k5}, expected {want}, "
+                      f"all wgmma")
+        checks.expect(all(math.isfinite(x) for x in out["losses"]),
+                      f"remat-off steps: losses {out['losses']}")
+    return out
+
+
+def phase_distcalc(seed: int, report: dict) -> dict:
+    """``repro_torch.core.distcalc`` on ``H100_SXM`` and a one-chip
+    ``MeshSpec(1, 1, 1)``: every cell the run measured predicted (three
+    roofline terms, the dominant one) beside its measured seconds and
+    their ratio; a measured time under its prediction is recorded as a
+    distcalc overcount, not gated.  Then the what-if ``complete_strategy``
+    answers for the train cell (remat off) run on the card, and whether
+    the card orders the two strategies as predicted.  Checks: every
+    prediction finite and positive, ``step_seconds`` the largest term,
+    the chosen strategy valid and fitting, and ``fits_memory`` false for
+    the three configs one card cannot hold and true for the six the run
+    serves or trains (at the families phase's prefill shape)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import distcalc as D
+    from repro_torch.core.hardware import H100_SXM
+    one = D.MeshSpec(1, 1, 1)
+    checks = Checks()
+    rows = []
+    cells = _distcalc_cells(report)
+    for name, arch, shape, strat, measured in cells:
+        cfg = get_config(arch)
+        t = D.synthesize(cfg, shape, one, strat, H100_SXM)
+        row = dict(cell=name, arch=arch, seq=shape.seq_len,
+                   batch=shape.global_batch, kind=shape.kind,
+                   strategy=strat.describe(), **t.to_json(),
+                   measured_s=measured,
+                   measured_over_predicted=measured / t.step_seconds,
+                   overcount=measured < t.step_seconds)
+        rows.append(row)
+        terms = (t.compute_s, t.memory_s, t.collective_s)
+        checks.expect(all(math.isfinite(x) and x >= 0 for x in terms) and
+                      t.step_seconds > 0 and
+                      t.step_seconds == max(terms),
+                      f"distcalc {name}: terms {terms}, step "
+                      f"{t.step_seconds}")
+        log(f"distcalc {name} ({strat.describe()}): compute "
+            f"{t.compute_s * 1e3:.3f} ms, memory {t.memory_s * 1e3:.3f} ms, "
+            f"collective {t.collective_s * 1e3:.3f} ms, {t.dominant}-bound; "
+            f"predicted {t.step_seconds * 1e3:.3f} ms, measured "
+            f"{measured * 1e3:.3f} ms, ratio {measured / t.step_seconds:.3f}"
+            + (" (measured under the prediction: a distcalc overcount)"
+               if measured < t.step_seconds else ""))
+    train_cell = cells[0]
+    cfg, shape = get_config(train_cell[1]), train_cell[2]
+    best, best_t = D.complete_strategy(cfg, shape, one, tpu=H100_SXM)
+    run_t = D.synthesize(cfg, shape, one, train_cell[3], H100_SXM)
+    checks.expect(not D.invalid_reasons(cfg, shape, one, best) and
+                  D.fits_memory(cfg, shape, one, best, H100_SXM),
+                  f"distcalc: complete_strategy chose {best}, invalid or "
+                  f"not fitting")
+    # the families phase's prefill (4 x 2,048) with the serving strategy
+    serve_shape = dataclasses.replace(shape, kind="prefill")
+    fits = {arch: D.fits_memory(get_config(arch), serve_shape, one,
+                                D.Strategy(tp=1, fsdp=False,
+                                           ep=bool(get_config(arch).moe),
+                                           remat=False), H100_SXM)
+            for arch in NOT_ON_ONE_CARD + ON_ONE_CARD}
+    checks.expect(not any(fits[a] for a in NOT_ON_ONE_CARD) and
+                  all(fits[a] for a in ON_ONE_CARD),
+                  f"distcalc fits_memory on one card: {fits}")
+    out = {"profile": H100_SXM.name, "mesh": "MeshSpec(1, 1, 1)",
+           "cells": rows, "fits_memory_prefill_4x2048": fits,
+           "train_chosen": best.describe(),
+           "train_chosen_step_s": best_t.step_seconds,
+           "train_run_strategy_step_s": run_t.step_seconds}
+    log(f"distcalc what-if: complete_strategy picks {best.describe()} at "
+        f"{best_t.step_seconds * 1e3:.3f} ms against the run's "
+        f"{train_cell[3].describe()} at {run_t.step_seconds * 1e3:.3f} ms")
+    if best.remat != train_cell[3].remat:
+        off = _remat_off_steps(seed, checks)
+        out["what_if"] = off
+        if off["fits"]:
+            # the same seed, batches and schedule as the train phase's
+            # first steps: remat recomputes the same forward, so the same
+            # losses (bit for bit on the card; held at 1e-5 relative)
+            want = report["train"]["losses"][:WHATIF_STEPS]
+            checks.expect(all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                              zip(off["losses"], want)),
+                          f"remat-off losses {off['losses']} are not the "
+                          f"train phase's {want}")
+            on_s = report["train"]["step_s_median"]
+            predicted = best_t.step_seconds < run_t.step_seconds
+            measured = off["step_s_median"] < on_s
+            off.update(remat_on_step_s=on_s,
+                       measured_over_predicted=off["step_s_median"] /
+                       best_t.step_seconds,
+                       card_agrees_with_predicted_order=(predicted ==
+                                                         measured))
+            log(f"distcalc what-if on the card: remat off "
+                f"{off['step_s_median']:.4f} s a step (remat on "
+                f"{on_s:.4f} s), peak {off['peak_gb']:.1f} GB, K5 "
+                f"{off['k5_launches']}; the card "
+                f"{'agrees with' if predicted == measured else 'reverses'}"
+                f" the predicted order")
+    out["failures"] = checks.failures
+    log("distcalc: " + json.dumps(out))
+    checks.raise_any()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernels: each kernel against its plain version, with times and bounds
 # ---------------------------------------------------------------------------
 def _ragged_k0(rng):
@@ -2634,6 +2883,53 @@ def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
     return rows
 
 
+def k5_backward(gen) -> dict:
+    """The attention backward at the lm and train shape ([4, 12/2, 2048,
+    128] bf16, causal, [B, S, H, D] strides): the port's, which is the
+    plain ``attention_ref`` pullback (``FlashAttention.backward``, as the
+    reference's ``_bwd``), against one SDPA backward (``enable_gqa``) on
+    the same inputs and output gradient; each timed alone on a retained
+    graph.  Bound: the backward's five products (S, dP, dV, dQ, dK; the
+    forward has two) over the pairs the causal mask keeps, at the bf16
+    tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    b, h, kh, sq, d = LM_BATCH, 12, 2, LM_PROMPT, 128
+    q, k, v = (x.detach().requires_grad_(True) for x in
+               _k5_inputs(gen, b, h, kh, sq, sq, d, torch.bfloat16))
+    grad = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+    out = ops.flash_attention(q, k, v, True)
+    plain_ms = timed_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), grad, retain_graph=True), reps=3, warmup=1)
+    del out
+    qc, kc, vc = (x.detach().contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ref = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                         enable_gqa=True)
+    gc_ = grad.contiguous()
+    library_ms = timed_ms(lambda: torch.autograd.grad(
+        ref, (qc, kc, vc), gc_, retain_graph=True), reps=10)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, True),
+                              (q, k, v), grad)
+    want = torch.autograd.grad(ref, (qc, kc, vc), gc_)
+    rms = max(float(((a.float() - w.float()) ** 2).mean().sqrt() /
+                    (w.float() ** 2).mean().sqrt())
+              for a, w in zip(got, want))
+    n_ops = 10 * b * h * d * _causal_pairs(sq, sq)
+    n_bytes = 2 * (3 * q.numel() + 3 * k.numel() + 3 * v.numel())
+    t_ops = n_ops / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"shape": f"[{b},{h},{sq},{d}] kv_heads={kh} bf16 causal",
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention backward "
+                       "(is_causal=True, enable_gqa=True)",
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": n_ops, "bytes": n_bytes,
+            "grad_rel_rms_vs_library": rms}
+
+
 def kernel_k5(seed, launches) -> dict:
     import torch
     import torch.nn.functional as F
@@ -2700,6 +2996,8 @@ def kernel_k5(seed, launches) -> dict:
     qf, kf, vf = (x.float() for x in main)
     simt_ms = timed_ms(lambda: kernel.flash_attention_kernel(qf, kf, vf,
                                                              True), reps=5)
+    backward = k5_backward(gen)
+    log(f"K5 backward: {json.dumps(backward)}")
     # the tensor-core variant's registers a thread (at launch) and shared
     # memory a block, at each head dim it is built for
     wgmma_info = {str(dd): kernel.wgmma_info(dd)
@@ -2726,6 +3024,7 @@ def kernel_k5(seed, launches) -> dict:
                  "tensor_tflops_done": 1.5 * n_ops / (ms * 1e-3) / 1e12,
                  "wgmma_info": wgmma_info,
                  "simt_float32_ms": simt_ms,
+                 "backward": backward,
                  "family_shapes": k5_family_cases(gen),
                  "simt_float32_shape": f"[{b},{h},{sq},{d}] float32 causal",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
@@ -2734,12 +3033,14 @@ def kernel_k5(seed, launches) -> dict:
 
 def only_k5(seed: int) -> list:
     """``--only k5``: K5 against its plain version, timed beside SDPA, at
-    the lm phase's shape and each family's (:func:`k5_family_cases`)."""
+    the lm phase's shape and each family's (:func:`k5_family_cases`), and
+    the attention backward beside SDPA's (:func:`k5_backward`)."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     lm = ("lm prefill", LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128, True,
           "bfloat16")
-    return k5_family_cases(gen, [lm] + K5_FAMILY_SHAPES)
+    return k5_family_cases(gen, [lm] + K5_FAMILY_SHAPES) + [
+        dict(k5_backward(gen), case="lm backward")]
 
 
 def only_stores(seed: int) -> dict:
@@ -2963,6 +3264,11 @@ def main(argv=None) -> int:
         f"{tr['device_busy_share']:.3f}), K5 {tr['k5_share_of_device']:.4f} "
         f"of it in {tr['k5_traced']:.0f} launches, peak "
         f"{tr['peak_gb']:.1f} GB, phase {report['train_phase_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    report["distcalc"] = phase_distcalc(args.seed, report)
+    report["distcalc_phase_s"] = time.perf_counter() - t0
+    what_if = report["distcalc"].get("what_if", {})
     seamless = fam["seamless-m4t-large-v2"]
     kernels[5]["launches_by_path"] = {
         "lm qwen2-1.5b prefill": kernels[5]["launches"],
@@ -2976,7 +3282,9 @@ def main(argv=None) -> int:
             tr["k5_counted"],
         f"qwen2-1.5b train, {TRAIN_STEPS} steps": tr["run_launches"],
         f"qwen2-1.5b train, resumed at step {TRAIN_CKPT_EVERY}":
-            tr["resume_launches"]}
+            tr["resume_launches"],
+        f"qwen2-1.5b remat-off what-if, {WHATIF_STEPS} steps":
+            what_if.get("k5_launches")}
     kernels[5]["train_path"] = {
         "shape": f"[{TRAIN_BATCH},{12},{TRAIN_SEQ},128] kv_heads=2 bf16 "
                  f"causal (the lm row's shape)",

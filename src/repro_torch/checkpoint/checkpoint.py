@@ -9,7 +9,10 @@ NamedTuple field ``.params``, a dict key as it is, a list or tuple index
 ``[i]``.  numpy has no bfloat16, so a bf16 tensor is stored as its 16-bit
 pattern and the manifest's ``dtypes`` names it ``bfloat16``; restore
 gives it back bit for bit.  Restore puts every tensor on an explicit
-device.
+device.  A tree of DTensors (a state on a mesh of several devices) is
+gathered whole on every rank, since the gather is a collective, and only
+rank 0 writes; restore places each leaf on a mesh by its spec, which may
+be another mesh than the one saved from (the elastic restart).
 """
 from __future__ import annotations
 
@@ -22,8 +25,11 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import runtime
+from repro_torch.parallel.sharding import place
 
 Params = Any
 _SEP = "/"
@@ -56,12 +62,23 @@ def _unflatten(template: Params, leaves: Iterator[Any]) -> Params:
     return next(leaves)
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process
+    group, or a process outside one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _snapshot(tree: Params) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     """Host copies of the tree's tensors as numpy (bf16 as its int16
     bits) and their dtypes' names; copying a CUDA tensor waits for the
-    work that writes it."""
+    work that writes it.  A DTensor leaf is gathered whole first, on
+    every rank (a collective); only the writer keeps the copies."""
     arrays, dtypes = {}, {}
     for key, leaf in _items(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if not _writer():
+            continue
         t = leaf.detach().to("cpu", copy=True)
         dtypes[key] = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
@@ -90,10 +107,13 @@ def _write(directory: str, step: int, arrays: Dict[str, np.ndarray],
 
 def save_checkpoint(directory: str, step: int, tree: Params,
                     extra: Optional[Dict] = None) -> str:
-    """Synchronous step-atomic save of ``tree`` (tensors on any
-    device)."""
+    """Synchronous step-atomic save of ``tree`` (tensors on any device,
+    or DTensors: every rank calls it, rank 0 writes)."""
     arrays, dtypes = _snapshot(tree)
-    return _write(directory, step, arrays, dtypes, extra)
+    step_dir = os.path.join(directory, f"step_{step:08d}")
+    if _writer():
+        _write(directory, step, arrays, dtypes, extra)
+    return step_dir
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -109,14 +129,22 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, template: Params,
-                       step: Optional[int] = None, device=None
+                       step: Optional[int] = None, device=None,
+                       shardings: Optional[Params] = None, mesh=None
                        ) -> Tuple[int, Params]:
     """Restore into the structure of ``template`` (tensors, the meta
     device's too, give the structure, shapes and dtypes) on ``device``
-    (default: :func:`repro_torch.runtime.device`).  A stored dtype that
-    differs from the template's (a reference checkpoint keeps bf16 as
-    float32) is cast to the template's."""
-    dev = runtime.device(device)
+    (default: :func:`repro_torch.runtime.device`; with ``mesh``, this
+    rank's device of it).  A stored dtype that differs from the
+    template's (a reference checkpoint keeps bf16 as float32) is cast to
+    the template's.  With ``shardings`` (specs in the template's
+    structure) and a ``mesh`` of several devices every leaf is placed on
+    it as a DTensor: every rank reads the whole checkpoint and keeps its
+    shard, whatever mesh saved it."""
+    if shardings is not None and mesh is None:
+        raise ValueError("shardings= needs the mesh to place them on")
+    dev = mesh.local_device if mesh is not None and device is None else \
+        runtime.device(device)
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -133,7 +161,10 @@ def restore_checkpoint(directory: str, template: Params,
                 raise ValueError(f"{key}: stored shape {tuple(t.shape)}, "
                                  f"template {tuple(leaf.shape)}")
             leaves.append(t.to(device=dev, dtype=leaf.dtype))
-    return step, _unflatten(template, iter(leaves))
+    tree = _unflatten(template, iter(leaves))
+    if shardings is not None and not mesh.trivial:
+        tree = place(tree, shardings, mesh)
+    return step, tree
 
 
 class CheckpointManager:
@@ -142,7 +173,9 @@ class CheckpointManager:
 
     Keeps the last ``keep`` checkpoints; ``wait()`` drains pending writes
     (call before process exit).  A failed async write surfaces on the next
-    ``save``/``wait`` call rather than being silently dropped.
+    ``save``/``wait`` call rather than being silently dropped.  In a
+    process group every rank calls ``save`` (a DTensor state is gathered
+    collectively) and rank 0 alone writes.
     """
 
     def __init__(self, directory: str, keep: int = 3):
@@ -156,6 +189,8 @@ class CheckpointManager:
              extra: Optional[Dict] = None) -> None:
         self.wait()
         arrays, dtypes = _snapshot(tree)   # before the caller moves on
+        if not _writer():
+            return
 
         def write():
             try:

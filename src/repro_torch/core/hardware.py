@@ -4,7 +4,10 @@ The port's twin of the reference's ``core/hardware.py``: the same JSON
 schema (:meth:`HardwareProfile.save` / :meth:`HardwareProfile.load`), the
 analytical profiles ``hw1``..``hw3``, and :func:`profile_from_arrays`,
 which turns fitted parameters held as numpy arrays (e.g. a profile the
-reference trained) into a port profile without a JSON round trip.
+reference trained) into a port profile without a JSON round trip.  Also
+the accelerator peaks :mod:`repro_torch.core.distcalc` reads:
+:class:`TPUProfile`, the reference's ``TPU_V5E`` and the card's
+``H100_SXM``.
 """
 from __future__ import annotations
 
@@ -141,6 +144,54 @@ def hw2() -> HardwareProfile:
 def hw3() -> HardwareProfile:
     return analytical_profile("HW3", mem_ns=70.0, l3_bytes=32 << 20,
                               cpu_ns_per_cmp=0.7, bw_bytes_per_s=40e9)
+
+
+# ---------------------------------------------------------------------------
+# Accelerator constants (the distributed Data Calculator, core/distcalc.py)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TPUProfile:
+    """One accelerator chip's peaks, as :mod:`repro_torch.core.distcalc`
+    reads them (the reference's class, kept under its name so that
+    ``distcalc`` is the same function in both packages).
+
+    ``distcalc`` reads ``peak_flops_bf16``, ``hbm_bw``, ``hbm_bytes`` and
+    ``ici_bw``.  ``ici_links_per_axis``, ``vmem_bytes`` and ``mxu_tile``
+    describe a TPU (links of its torus, its vector memory, its matrix
+    unit's tile); nothing in the port reads them."""
+
+    name: str = "tpu_v5e"
+    peak_flops_bf16: float = 197e12     # per chip
+    hbm_bw: float = 819e9               # bytes/s per chip
+    hbm_bytes: float = 16e9             # per chip
+    ici_bw: float = 50e9                # bytes/s per link per direction
+    ici_links_per_axis: int = 1         # 2D torus: 1 link per mesh direction
+    vmem_bytes: float = 128e6
+    mxu_tile: int = 128
+
+    def compute_seconds(self, flops_per_chip: float) -> float:
+        return flops_per_chip / self.peak_flops_bf16
+
+    def memory_seconds(self, bytes_per_chip: float) -> float:
+        return bytes_per_chip / self.hbm_bw
+
+    def collective_seconds(self, bytes_per_chip: float) -> float:
+        return bytes_per_chip / self.ici_bw
+
+
+#: the reference's TPU v5e figures, verbatim (reference data: the default
+#: of every ``distcalc`` function, as in the reference)
+TPU_V5E = TPUProfile()
+
+#: one NVIDIA H100 SXM (NVIDIA H100 Tensor Core GPU datasheet, SXM part,
+#: dense rates): 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3,
+#: 80 GB.  ``ici_bw`` is NVLink 4 in one direction: the datasheet's 900
+#: GB/s a GPU counts both directions, so 450e9 B/s each way.  The
+#: TPU-only fields are 0: the card has no torus links, vector memory or
+#: MXU, and nothing reads them.
+H100_SXM = TPUProfile(name="h100_sxm", peak_flops_bf16=989e12,
+                      hbm_bw=3.35e12, hbm_bytes=80e9, ici_bw=450e9,
+                      ici_links_per_axis=0, vmem_bytes=0.0, mxu_tile=0)
 
 
 def profile_from_arrays(name: str,

@@ -6,8 +6,14 @@ heartbeats and straggler tracking (the port of ``repro/launch/train.py``).
         --smoke --device cpu --steps 50 --batch 8 --seq 128
 
 Runs on the card (``--device cpu`` for the CPU), on the one-device host
-mesh; ``--mesh single|multi`` (16x16 / 2x16x16) raises until the port
-places tensors on a mesh of several devices.  The attention path is the
+mesh.  On a mesh of several devices (``launch.mesh.make_mesh(shape, axes,
+devices=...)``, every rank of an initialised process group calling
+``train`` with it) the state is placed by the sharding rules as DTensors
+and each step's batch by ``batch_sharding``; every rank builds the same
+global batch (the pipeline is a pure function of the step), checkpoints
+gather the state and rank 0 writes them and logs.  ``--mesh
+single|multi`` (16x16 / 2x16x16) are descriptions this host cannot run:
+they raise, naming the world size they need.  The attention path is the
 config's ``attn_impl`` (callers set ``"flash"``, kernel K5, with
 ``dataclasses.replace``).  Restart semantics: if ``--checkpoint-dir`` holds
 a checkpoint, training resumes from the latest step (the data pipeline is
@@ -24,6 +30,7 @@ import time
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import runtime
 from repro_torch.checkpoint.checkpoint import (CheckpointManager,
@@ -35,13 +42,21 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.launch.mesh import Mesh, host_mesh, make_production_mesh
 from repro_torch.models import build
 from repro_torch.parallel import ctx
-from repro_torch.parallel.sharding import check_realisable, state_shardings
+from repro_torch.parallel.sharding import (batch_sharding, check_realisable,
+                                           embeds_sharding, full, place,
+                                           state_shardings)
 from repro_torch.train import ft
 from repro_torch.train.loop import init_state, make_train_step
 
 
+def _batch_specs(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    b = batch["tokens"].shape[0]
+    return {k: embeds_sharding(mesh, b) if k == "embeds" else
+            batch_sharding(mesh, b, ndim=v.ndim) for k, v in batch.items()}
+
+
 def train(cfg: ArchConfig, shape: ShapeConfig, run: RunConfig,
-          mesh: Mesh = None, worker: str = "w0",
+          mesh: Mesh = None, worker: str = None,
           log=print) -> Dict[str, Any]:
     """Train ``run.total_steps`` steps of ``shape``'s batches from the
     latest checkpoint under ``run.checkpoint_dir`` (else from
@@ -49,17 +64,22 @@ def train(cfg: ArchConfig, shape: ShapeConfig, run: RunConfig,
     and at the end.  Returns the first and final loss, the per-step losses
     and host-clock seconds (each step synchronised), the seconds each save
     held the loop, the step it started from and the fault-tolerance
-    health check."""
+    health check.  On a mesh of several devices every rank calls it (its
+    ``worker`` defaults to ``w<rank>``); rank 0 logs."""
     mesh = mesh or host_mesh()
-    if not mesh.devices or not mesh.trivial:
-        raise NotImplementedError(
-            f"training on the mesh {mesh.shape} needs its tensors placed "
-            f"across devices (DTensor), which the port does not do yet")
-    dev = mesh.devices[0]
+    placed = not mesh.trivial
+    if placed:
+        mesh.device_mesh()          # raises without the ranks it needs
+    dev = mesh.local_device
+    rank = dist.get_rank() if placed else 0
+    worker = worker or f"w{rank}"
+    if rank:                        # rank 0 logs
+        log = lambda _msg: None
     model = build(cfg)
     # shapes without storage: the rules' input and the restore template
     template = init_state(model, run.seed, device="meta")
-    check_realisable(state_shardings(template, mesh), template, mesh)
+    specs = state_shardings(template, mesh)
+    check_realisable(specs, template, mesh)
     step_fn = make_train_step(model, run)
 
     manager = CheckpointManager(run.checkpoint_dir, keep=3)
@@ -72,11 +92,14 @@ def train(cfg: ArchConfig, shape: ShapeConfig, run: RunConfig,
     start = 0
     with ctx.mesh_context(mesh):
         if latest_step(run.checkpoint_dir) is not None:
-            start, state = restore_checkpoint(run.checkpoint_dir, template,
-                                              device=dev)
+            start, state = restore_checkpoint(
+                run.checkpoint_dir, template, device=dev,
+                shardings=specs if placed else None, mesh=mesh)
             log(f"restored checkpoint at step {start}")
         else:
             state = init_state(model, run.seed, device=dev)
+            if placed:
+                state = place(state, specs, mesh)
         del template
 
         pipe = DataPipeline(cfg, shape, seed=run.seed, start_step=start)
@@ -87,9 +110,12 @@ def train(cfg: ArchConfig, shape: ShapeConfig, run: RunConfig,
                     break
                 batch = {k: torch.as_tensor(v, device=dev)
                          for k, v in batch.items()}
+                if placed:
+                    batch = place(batch, _batch_specs(batch, mesh), mesh)
                 runtime.synchronize(dev)
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
+                metrics = full(metrics)
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t0
                 monitor.on_step(worker, dt)
@@ -110,6 +136,8 @@ def train(cfg: ArchConfig, shape: ShapeConfig, run: RunConfig,
             manager.save(start + len(losses), state,
                          extra={"loss": losses[-1] if losses else None})
             manager.wait()
+            if placed:              # every rank sees the final checkpoint
+                dist.barrier()
             save_s.append(time.perf_counter() - t0)
         finally:
             pipe.close()

@@ -20,6 +20,7 @@ import torch
 from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -64,8 +65,9 @@ def _enc_layer(layer: Params, x: torch.Tensor, cfg: ArchConfig,
     x = x + L.attention(layer["attn"],
                         L.rmsnorm(layer["ln1"], x, cfg.norm_eps),
                         cfg, positions, causal=False)
-    return x + L.mlp(layer["mlp"],
-                     L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
+    return ctx.constrain_residual(
+        x + L.mlp(layer["mlp"], L.rmsnorm(layer["ln2"], x, cfg.norm_eps),
+                  cfg))
 
 
 def encode(params: Params, src_embeds: torch.Tensor, cfg: ArchConfig
@@ -88,8 +90,9 @@ def _dec_layer(layer: Params, x: torch.Tensor, enc_kv, cfg: ArchConfig,
     x = x + L.attention(layer["xattn"],
                         L.rmsnorm(layer["ln_x"], x, cfg.norm_eps),
                         cfg, positions, kv=enc_kv)
-    return x + L.mlp(layer["mlp"],
-                     L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
+    return ctx.constrain_residual(
+        x + L.mlp(layer["mlp"], L.rmsnorm(layer["ln2"], x, cfg.norm_eps),
+                  cfg))
 
 
 def _dec_body(layer: Params, x: torch.Tensor, enc_out: torch.Tensor,

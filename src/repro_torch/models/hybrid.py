@@ -18,6 +18,7 @@ from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -65,7 +66,7 @@ def _layer(layer: Params, shared: Params, x: torch.Tensor, cfg: ArchConfig,
                              L.rmsnorm(layer["ln"], x, cfg.norm_eps), cfg)
     if with_shared:
         x = _shared_block(shared, x, cfg, positions)
-    return x
+    return ctx.constrain_residual(x)
 
 
 def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,

@@ -5,9 +5,12 @@ Plain functions on tensors: parameters are nested dicts of tensors with the
 reference's keys and shapes.  A layer stack is a Python list of per-layer
 dicts, and the reference's ``scan_layers`` (``lax.scan`` over a stacked
 leading axis) becomes a loop over that list in the callers.  The
-reference's ``ctx.constrain_*`` sharding hints are the identity on one
-device and are left out here; ``repro_torch.parallel.ctx`` has them, for
-the multi-device slice to wire in.
+reference's ``ctx.constrain_*`` sharding hints sit where the reference's
+do; they are the identity on one device.  On a mesh of several devices
+the tensors are DTensors: the embedding table is gathered for its lookup,
+attention runs on each rank's shard of the batch and heads
+(``ctx.heads_local``), and the decode step writes each rank's rows of its
+cache in place.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -117,6 +121,7 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ArchConfig,
          positions: torch.Tensor, rope: bool = True
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dtype = cfg.cdtype()
+    x = ctx.enter_block(x)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
@@ -127,7 +132,8 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ArchConfig,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (ctx.constrain_heads(q), ctx.constrain_heads(k),
+            ctx.constrain_heads(v))
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -218,14 +224,22 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
         k, v = kv
         causal = False
     out = core_attention(q, k, v, cfg, causal)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    return ctx.exit_block(
+        torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype)))
 
 
 def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cfg: ArchConfig, causal: bool) -> torch.Tensor:
     """softmax(q k^T) v in [B, S, H, hd] by ``cfg.attn_impl``: "flash" is
     kernel K5, "skip" the reference's ablation probe (q itself), anything
-    else the plain chunked path."""
+    else the plain chunked path; on each rank's shard of the batch and
+    heads when they are DTensors."""
+    return ctx.heads_local(
+        lambda q, k, v: _core_attention(q, k, v, cfg, causal), q, k, v)
+
+
+def _core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: ArchConfig, causal: bool) -> torch.Tensor:
     if cfg.attn_impl == "flash":
         from repro_torch.kernels.flash_attention.ops import \
             flash_attention_bshd
@@ -245,23 +259,32 @@ def decode_attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
     :func:`_scatter_time`), which are returned."""
     dtype = cfg.cdtype()
     q, k, v = _qkv(params, x, cfg, pos[:, None])
-    b = x.shape[0]
     k_cache = _scatter_time(k_cache, k, pos)
     v_cache = _scatter_time(v_cache, v, pos)
-    h, kh = cfg.n_heads, cfg.n_kv_heads
+    out = ctx.heads_local(
+        lambda q, kc, vc, p: _decode_core(q, kc, vc, p, dtype, cache_len),
+        q, k_cache, v_cache, pos)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    return y, k_cache, v_cache
+
+
+def _decode_core(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: torch.Tensor, dtype,
+                 cache_len: int) -> torch.Tensor:
+    """One query a sequence against its cache: q [B, 1, H, hd]; caches
+    [B, S, KH, hd]; keys past ``pos`` masked."""
+    b, _, h, hd = q.shape
+    kh = k_cache.shape[2]
     g = h // kh
-    hd = cfg.resolved_head_dim
     qg = q.reshape(b, 1, kh, g, hd) / math.sqrt(hd)
     scores = torch.einsum("bikgh,bjkh->bkgij", qg,
                           k_cache.to(dtype)).to(torch.float32)
-    t = torch.arange(cache_len, device=x.device)
+    t = torch.arange(cache_len, device=q.device)
     mask = t[None, :] <= pos[:, None]                     # [B, S]
     scores = torch.where(mask[:, None, None, None, :], scores, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(dtype)
     out = torch.einsum("bkgij,bjkh->bikgh", probs, v_cache.to(dtype))
-    out = out.reshape(b, 1, h, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
-    return y, k_cache, v_cache
+    return out.reshape(b, 1, h, hd)
 
 
 def _scatter_time(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
@@ -270,9 +293,12 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
 
     The reference blends a one-hot row into a new array; the port writes
     the row in place, which gives the same cache for finite values and
-    saves a copy of it per layer and step.  ``pos`` must lie in [0, S)."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos.long()] = new[:, 0].to(cache.dtype)
+    saves a copy of it per layer and step.  ``pos`` must lie in [0, S).
+    A DTensor cache split by the batch is written through each rank's
+    own rows."""
+    local, new, pos = ctx.local_rows(cache, new, pos)
+    rows = torch.arange(local.shape[0], device=local.device)
+    local[rows, pos.long()] = new[:, 0].to(local.dtype)
     return cache
 
 
@@ -294,10 +320,13 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig,
 
 def mlp(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dtype = cfg.cdtype()
-    gate = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(dtype))
-    up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(dtype))
-    return torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
-                        params["w_down"].to(dtype))
+    x = ctx.enter_block(x)
+    gate = ctx.constrain_ffn(
+        torch.einsum("bsd,df->bsf", x, params["w_gate"].to(dtype)))
+    up = ctx.constrain_ffn(
+        torch.einsum("bsd,df->bsf", x, params["w_up"].to(dtype)))
+    return ctx.exit_block(torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
+                                       params["w_down"].to(dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -316,13 +345,16 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig, device=None
 
 def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig
           ) -> torch.Tensor:
-    # gather, then cast: the same values as the reference's cast-then-gather
-    return params["tok"][tokens.long()].to(cfg.cdtype())
+    # gather, then cast: the same values as the reference's cast-then-gather.
+    # A table split over the vocabulary is gathered whole first: DTensor's
+    # lookup in a vocab-sharded table cannot be differentiated
+    return ctx.gathered(params["tok"])[tokens.long()].to(cfg.cdtype())
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig
             ) -> torch.Tensor:
     dtype = cfg.cdtype()
+    x = ctx.enter_block(x)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["tok"].to(dtype))
     return torch.einsum("bsd,dv->bsv", x, params["head"].to(dtype))

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import normal
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -106,9 +107,12 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
 
         xg = xt[token_ids.reshape(-1)].reshape(e, c, d).to(dtype)
         xg = xg * r["gathered_mask"][..., None].to(dtype)    # zero padding
+        # expert-parallel dispatch: [E, C, D] split on the expert axis
+        xg = ctx.constrain_experts(xg)
         gate = torch.bmm(xg, params["w_gate"].to(dtype))
         up = torch.bmm(xg, params["w_up"].to(dtype))
-        out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dtype))
+        out = ctx.constrain_experts(
+            torch.bmm(F.silu(gate) * up, params["w_down"].to(dtype)))
 
         # combine: scatter-add expert outputs weighted by the router gates
         w = torch.gather(r["combine_w"].T, 1, token_ids)     # [E, C]

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import normal, rmsnorm
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -156,7 +157,8 @@ def _mamba2_project(params: Params, x: torch.Tensor, cfg: ArchConfig):
     d_in, hd, h, n = mamba2_dims(cfg)
     proj = torch.einsum("bsd,de->bse", x,
                         params["in_proj"].to(cfg.cdtype()))
-    return torch.split(proj, [d_in, d_in, n, n, h], dim=-1)
+    z, xin, Bv, Cv, dt = torch.split(proj, [d_in, d_in, n, n, h], dim=-1)
+    return ctx.constrain_ffn(z), ctx.constrain_ffn(xin), Bv, Cv, dt
 
 
 def _mamba2_dt(params: Params, dt: torch.Tensor):

@@ -19,6 +19,7 @@ from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -64,11 +65,12 @@ def _ffn(layer: Params, h: torch.Tensor, cfg: ArchConfig
 def layer_forward(layer: Params, x: torch.Tensor, cfg: ArchConfig,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    x = x + L.attention(layer["attn"], L.rmsnorm(layer["ln1"], x,
+    x = ctx.constrain_residual(
+        x + L.attention(layer["attn"], L.rmsnorm(layer["ln1"], x,
                                                  cfg.norm_eps),
-                        cfg, positions)
+                        cfg, positions))
     y, aux = _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
-    return x + y, aux
+    return ctx.constrain_residual(x + y), aux
 
 
 def _inputs(params: Params, tokens: Optional[torch.Tensor],
@@ -92,6 +94,7 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
     without MoE)."""
     x = _inputs(params, tokens, cfg, embeds)
     b, s, _ = x.shape
+    x = ctx.constrain_residual(x)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -156,8 +159,9 @@ def prefill(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
         out = L.core_attention(q, k, v, cfg, causal=True)
         y = torch.einsum("bshk,hkd->bsd", out,
                          layer["attn"]["wo"].to(cfg.cdtype()))
-        x = x + y
-        x = x + _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)[0]
+        x = ctx.constrain_residual(x + y)
+        x = ctx.constrain_residual(
+            x + _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)[0])
         ks[i, :, :s] = k
         vs[i, :, :s] = v
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -16,6 +16,7 @@ from repro_torch import runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.parallel import ctx
 
 Params = Dict[str, Any]
 
@@ -46,8 +47,10 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
 def _block(block: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = L.rmsnorm(block["ln"], x, cfg.norm_eps)
     if "slstm" in block:
-        return x + S.slstm_forward(block["slstm"], h, cfg)
-    return x + S.mlstm_forward(block["mlstm"], h, cfg)
+        return ctx.constrain_residual(
+            x + S.slstm_forward(block["slstm"], h, cfg))
+    return ctx.constrain_residual(
+        x + S.mlstm_forward(block["mlstm"], h, cfg))
 
 
 def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,

@@ -16,14 +16,19 @@ The reference stacks each layer weight on a leading axis (``[L, ...]``);
 the port keeps a list of per-layer dicts.  A per-layer tensor's spec is
 computed on the reference's stacked shape ``(L,) + shape`` under the
 reference's path (``layers/attn/wq``) and its leading entry dropped, so
-both packages choose the same axes for every weight.  Placing tensors by
-these specs (DTensor) waits for the multi-device slice: on one card every
-axis has size 1 and :func:`check_realisable` is all a trainer does.
+both packages choose the same axes for every weight.  On a mesh of
+several devices :func:`place` puts a tree on the mesh's ``DeviceMesh`` as
+DTensors by these specs (:func:`placements`) and :func:`full` gathers it
+back; on one card every axis has size 1 and :func:`check_realisable` is
+all a trainer does.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
+
+from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import Mesh
@@ -228,6 +233,82 @@ def check_realisable(specs: Any, tree: Any, mesh: Mesh) -> int:
             raise ValueError(f"spec {specs}: dimension {dim} of {shape} "
                              f"does not split {size} ways")
     return 1
+
+
+# ---------------------------------------------------------------------------
+# Placing trees on a DeviceMesh (DTensor)
+# ---------------------------------------------------------------------------
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: Spec, mesh: Mesh) -> List[Placement]:
+    """The DTensor placements of ``spec`` on ``mesh``: mesh dim ``i`` gets
+    ``Shard(d)`` when its axis name appears at tensor dim ``d``, else
+    ``Replicate()``.  A dim split over several axes is split in mesh
+    order (DTensor's), so an entry must list its axes in that order, as
+    the rules do (``("pod", "data")``); one listed otherwise, or an axis
+    named twice, raises ``ValueError``."""
+    order = {name: i for i, name in enumerate(mesh.axis_names)}
+    dim_of: Dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        names = _names(entry)
+        if any(n not in order for n in names):
+            raise ValueError(f"spec {spec}: {names} not all on the mesh "
+                             f"{mesh.axis_names}")
+        if [order[n] for n in names] != sorted(order[n] for n in names):
+            raise ValueError(f"spec {spec}: {names} is not in the mesh's "
+                             f"axis order {mesh.axis_names}")
+        for n in names:
+            if n in dim_of:
+                raise ValueError(f"spec {spec}: axis {n!r} named twice")
+            dim_of[n] = d
+    return [Shard(dim_of[n]) if n in dim_of else Replicate()
+            for n in mesh.axis_names]
+
+
+def _map_leaves(fn, tree, specs=None):
+    """``fn(leaf, spec)`` over a tree of NamedTuples, dicts, lists and
+    tuples whose leaves are tensors, ``specs`` its tree of specs (``None``:
+    every spec ``None``)."""
+    def sub(key):
+        return None if specs is None else specs[key]
+
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, v, sub(i))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, sub(i))
+                          for i, v in enumerate(tree))
+    return fn(tree, specs)
+
+
+def place(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """Every leaf of ``tree`` as a DTensor on ``mesh.device_mesh()``,
+    placed by its spec.  Every rank holds the same values (the same seed,
+    checkpoint or step of the pipeline), so each keeps its own shard and
+    nothing is sent."""
+    dm = mesh.device_mesh()
+
+    def leaf(t, spec):
+        if isinstance(t, DTensor):
+            raise ValueError("place() takes whole tensors, not DTensors")
+        return distribute_tensor(t, dm, placements(spec, mesh),
+                                 src_data_rank=None)
+
+    return _map_leaves(leaf, tree, specs)
+
+
+def full(tree: Any) -> Any:
+    """``tree`` with every DTensor leaf gathered into a whole tensor on
+    its rank's device (a collective: every rank calls it); other leaves
+    as they are."""
+    return _map_leaves(lambda t, _: t.full_tensor()
+                       if isinstance(t, DTensor) else t, tree)
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,17 @@ Functional, as the reference: a step takes a :class:`TrainState` and
 returns a new one, leaving its input as it was (so one state can be
 stepped twice, as the checks on the card do).  PyTorch runs eagerly, so
 the reference's ``jax.jit`` and its donation have no counterpart; the
-caller drops the old state when a step returns.
+caller drops the old state when a step returns.  On a mesh of several
+devices the state and batch are DTensors (``launch.train`` places them):
+each gradient is redistributed to its parameter's placements, so the
+state keeps its layout step after step.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import runtime
@@ -21,6 +25,7 @@ from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      apply_updates, clip_by_global_norm,
                                      tree_leaves, tree_map)
+from repro_torch.parallel import ctx
 
 Params = Any
 
@@ -42,7 +47,7 @@ def init_state(model: Model, seed: int, device=None,
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
                        ) -> torch.Tensor:
     """logits [B,S,V] (any float dtype), labels [B,S] int."""
-    logits = logits.to(torch.float32)
+    logits = ctx.constrain_bsd(logits).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (logz - gold).mean()
@@ -55,7 +60,9 @@ CE_CHUNK = 512
 
 def _ce_slice(x_blk: torch.Tensor, l_blk: torch.Tensor, embed: Params,
               cfg: ArchConfig) -> torch.Tensor:
-    logits = L.unembed(embed, x_blk, cfg).to(torch.float32)
+    # the vocabulary whole on each rank: the gold logit's gather
+    logits = ctx.constrain_bsd(L.unembed(embed, x_blk, cfg)).to(
+        torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, l_blk[..., None].long())[..., 0]
     return (logz - gold).sum()
@@ -71,6 +78,7 @@ def chunked_cross_entropy(x: torch.Tensor, embed: Params,
     slice is rematerialized (``torch.utils.checkpoint``), so the backward
     pass also recomputes its logits instead of keeping them.  A sequence
     that is not a whole number of slices takes the naive loss."""
+    x = ctx.enter_block(x)            # slices of the whole sequence
     b, s, d = x.shape
     chunk = min(CE_CHUNK, s)
     if s % chunk != 0:
@@ -112,10 +120,18 @@ def loss_and_grads(params: Params, batch: Dict[str, torch.Tensor],
         total, metrics = _loss_fn(live, batch, model)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = iter([torch.zeros_like(p) if g is None else g
+    grads = iter([torch.zeros_like(p) if g is None else _placed_as(g, p)
                   for p, g in zip(leaves, grads)])
     return ({k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(grads), params))
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements (a partial sum
+    reduced, scattered where the parameter is split)."""
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -134,8 +150,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if micro and micro < b:
         n_micro = b // micro
         acc_dtype = torch.bfloat16 if run.grad_compression else torch.float32
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                               device=p.device),
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype),
                          state.params)
         parts = []
         for i in range(n_micro):

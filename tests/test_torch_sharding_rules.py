@@ -120,14 +120,14 @@ def test_ctx_batch_axes_follow_mesh_names():
 
 def test_ctx_on_one_device_returns_its_input_and_raises_across_devices():
     """On a mesh whose axes all have size 1 a constraint places nothing;
-    on a mesh of several devices it needs DTensor and raises instead of
-    being dropped."""
+    on a mesh of several devices it needs a DTensor and raises on a plain
+    tensor instead of being dropped (unless it places nothing)."""
     x = torch.ones((32, 8, 16))
     with runtime.use_device("cpu"), ctx.mesh_context(p_mesh.host_mesh()):
         assert ctx.constrain_residual(x) is x
         assert ctx.constrain_logits(x) is x
     with ctx.mesh_context(mesh_single()):
-        with pytest.raises(NotImplementedError, match="DTensor"):
+        with pytest.raises(TypeError, match="DTensor"):
             ctx.constrain_bsd(x)
         assert ctx.constrain_bsd(torch.ones((3, 8, 16))).shape == (3, 8, 16)
 

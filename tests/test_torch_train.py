@@ -28,6 +28,7 @@ from repro.configs.base import ShapeConfig as RShapeConfig
 from repro.data import pipeline as r_pipeline
 from repro.launch import train as r_launch
 from repro.models import build as r_build
+from repro.optim import adamw as r_adamw
 from repro.train import loop as r_loop
 from repro_torch import runtime
 from repro_torch.checkpoint.checkpoint import save_checkpoint
@@ -81,10 +82,10 @@ def _batches(cfg_r, b, s, step=0, seed=0):
             {k: torch.as_tensor(v) for k, v in batch.items()})
 
 
-def _close_trees(got, want, cfg, what, rtol=RTOL):
+def _close_trees(got, want, cfg, what, rtol=RTOL, atol=0.0):
     """Every leaf of the port's tree within ``rtol`` (and RTOL of the
-    largest entry) of the reference's, unstacked into the port's layout,
-    at the same key."""
+    largest entry, or ``atol`` where that is larger) of the reference's,
+    unstacked into the port's layout, at the same key."""
     want = params_from_reference(jax.tree.map(np.asarray, want), cfg,
                                  device="cpu")
 
@@ -99,7 +100,7 @@ def _close_trees(got, want, cfg, what, rtol=RTOL):
         w = w.float().numpy()
         scale = max(float(np.abs(w).max()), 1e-30)
         np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
-                                   atol=RTOL * scale,
+                                   atol=max(RTOL * scale, atol),
                                    err_msg=f"{what} {path}")
         return 1
 
@@ -171,7 +172,22 @@ STEP_CASES = {
                     dict()),
     "moe_aux_loss": ("granite-moe-1b-a400m", dict(), dict()),
     "vlm_text_slice": ("pixtral-12b", dict(), dict()),
+    "hybrid": ("zamba2-1.2b", dict(), dict()),
+    "ssm": ("xlstm-350m", dict(), dict()),
+    "audio": ("seamless-m4t-large-v2", dict(), dict()),
 }
+
+#: the scan families' gradients sum long products over every token (the
+#: Mamba2 ``dt_bias``, the sLSTM's recurrence), so a leaf whose entries
+#: cancel to near zero carries float-order noise that is large against
+#: its own largest entry but not against the gradient as a whole: their
+#: moments are held to RTOL of the global gradient norm (mu = (1-b1) g,
+#: nu = (1-b2) g^2, whose gap is at most 2 (1-b2) |g| |dg|), and their
+#: parameters to 5% of step 1's learning rate, since AdamW's first update
+#: lr g / (|g| + 1e-8) turns a float-order gap in a gradient near its
+#: 1e-8 epsilon into a gap of a fraction of lr (the sign, and every
+#: update of a gradient well above epsilon, stay held)
+SCAN_CASES = ("hybrid", "ssm")
 
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
@@ -195,12 +211,17 @@ def test_train_step_matches_reference(case):
     # the two packages where the float32 values straddle a boundary; the
     # moments carry that (nu, the square, twice the relative distance)
     rtol = 2.0 ** -6 if run_p.grad_compression else RTOL
+    gnorm = float(want["grad_norm"])
+    scan = case in SCAN_CASES
     _close_trees(got_state.opt.mu, want_state.opt.mu, cfg_p, f"{case} mu",
-                 rtol)
+                 rtol, atol=RTOL * (1 - run_p.b1) * gnorm if scan else 0.0)
     _close_trees(got_state.opt.nu, want_state.opt.nu, cfg_p, f"{case} nu",
-                 2 * rtol if run_p.grad_compression else RTOL)
+                 2 * rtol if run_p.grad_compression else RTOL,
+                 atol=2 * RTOL * (1 - run_p.b2) * gnorm ** 2 if scan
+                 else 0.0)
+    lr1 = float(r_adamw.cosine_schedule(jnp.int32(1), run_r)) if scan else 0
     _close_trees(got_state.params, want_state.params, cfg_p,
-                 f"{case} params")
+                 f"{case} params", atol=0.05 * lr1)
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +352,10 @@ def test_resumed_train_takes_the_uninterrupted_losses(tmp_path):
 
 
 def test_train_refuses_a_mesh_of_several_devices(tmp_path):
+    """The production mesh is a description (256 chips this host does not
+    have): train() refuses it, naming the world size it needs."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="DTensor"):
+    with pytest.raises(ValueError, match="world size 256"):
         p_launch.train(cfg, ShapeConfig("t", 16, 2, "train"),
                        RunConfig(total_steps=1,
                                  checkpoint_dir=str(tmp_path)),
