@@ -116,6 +116,22 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   three configs one card cannot hold and true for the six it runs.  The
   kernels phase also times the attention backward (the plain pullback
   the port runs, and one SDPA backward) at the lm shape.
+* ``dryrun`` (after distcalc): ``repro_torch.launch.dryrun``'s per-chip
+  counter on the card.  Every cell the run measured counted on one
+  card's fake CUDA tensors at the shapes and with the flash attention it
+  ran (FLOPs, bytes, collective bytes; K5 by its op's flop formula, the
+  train step's remat recompute and float32 attention backward included)
+  beside distcalc's predicted FLOPs and terms on ``H100_SXM``, the H100
+  roofline of the count and the measured seconds; one real qwen2-1.5b
+  train step counted under the same counter, its FLOPs the fake count's
+  exactly and K5 56 launches; then phi3.5-moe-42b, qwen1.5-32b and
+  llama3-405b at ``train_4k`` on the (16, 16) fake mesh with probes, and
+  phi3.5-moe-42b on (2, 16, 16), each through ``python -m
+  repro_torch.launch.dryrun`` in a subprocess on meta tensors, all at
+  once: the count's
+  seconds, per-chip counts and memory, the H100_SXM and TPU_V5E roofline
+  terms, distcalc's and ``useful_flops_ratio`` on a line each.  A failed
+  subprocess fails the phase.
 
 Launch counters are reset just before each path and read just after it.
 Prints the card's name and power limit, one JSON line with the kernels,
@@ -123,8 +139,9 @@ and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
 ``--only whatif`` runs the whatif phase alone, ``--only stores`` times
 K1 and the bloom_probe op at the kvstore shapes, ``--only k5`` times K5
-beside SDPA at the lm phase's shape and each family's, and ``--only
-train`` runs the train phase alone; they print no result line.
+beside SDPA at the lm phase's shape and each family's, ``--only train``
+runs the train phase alone and ``--only dryrun`` the dryrun phase (no
+measured times); they print no result line.
 """
 from __future__ import annotations
 
@@ -2133,7 +2150,8 @@ def _distcalc_cells(report) -> list:
     run measured: the train step with its own strategy; each prefill or
     forward and each decode step (measured: the decode loop's seconds
     over its steps) with the one-card serving strategy (``ep`` on a MoE,
-    as the reference's candidates set it)."""
+    as the reference's candidates set it).  Without a report (``--only
+    dryrun``) every measured value is None."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import distcalc as D
@@ -2145,40 +2163,45 @@ def _distcalc_cells(report) -> list:
     def shape(seq, kind, batch=FAM_BATCH):
         return ShapeConfig(kind, seq, batch, kind)
 
-    tr, lm, fam = report["train"], report["lm"], report["families"]
+    def measured(fn):
+        return fn() if report else None
+
+    tr, lm, fam = (report or {}).get("train"), (report or {}).get("lm"), \
+        (report or {}).get("families")
     cells = [("train step", "qwen2-1.5b", shape(TRAIN_SEQ, "train",
                                                 TRAIN_BATCH),
               D.Strategy(tp=1, fsdp=False, ep=False, remat=True),
-              tr["step_s_median"]),
+              measured(lambda: tr["step_s_median"])),
              ("lm prefill", "qwen2-1.5b", shape(LM_PROMPT, "prefill",
                                                 LM_BATCH),
-              serve("qwen2-1.5b"), lm["prefill_s"]),
+              serve("qwen2-1.5b"), measured(lambda: lm["prefill_s"])),
              ("lm decode step", "qwen2-1.5b",
               shape(LM_PROMPT + LM_DECODE, "decode", LM_BATCH),
-              serve("qwen2-1.5b"), lm["decode_s"] / LM_DECODE)]
-    g, p = fam["granite-moe-1b-a400m"], fam["pixtral-12b"]
-    for arch, res in (("granite-moe-1b-a400m", g), ("pixtral-12b", p)):
+              serve("qwen2-1.5b"),
+              measured(lambda: lm["decode_s"] / LM_DECODE))]
+    for arch in ("granite-moe-1b-a400m", "pixtral-12b"):
         cells += [(f"{arch} prefill", arch, shape(FAM_SEQ, "prefill"),
-                   serve(arch), res["prefill_s"]),
+                   serve(arch), measured(lambda: fam[arch]["prefill_s"])),
                   (f"{arch} decode step", arch,
                    shape(FAM_SEQ + FAM_DECODE, "decode"), serve(arch),
-                   res["decode_s"] / FAM_DECODE)]
+                   measured(lambda: fam[arch]["decode_s"] / FAM_DECODE))]
     for arch in ("zamba2-1.2b", "xlstm-350m"):
-        res = fam[arch]
         cells += [(f"{arch} forward", arch, shape(FAM_SEQ, "prefill"),
-                   serve(arch), res["forward_s"]),
+                   serve(arch), measured(lambda: fam[arch]["forward_s"])),
                   (f"{arch} decode step", arch,
                    shape(STEP_PROMPT + STEP_DECODE, "decode"), serve(arch),
-                   res["served"]["decode_s"] / STEP_DECODE)]
-    sm = fam["seamless-m4t-large-v2"]
+                   measured(lambda: fam[arch]["served"]["decode_s"] /
+                            STEP_DECODE))]
+    sm = "seamless-m4t-large-v2"
     # distcalc sizes an encoder-decoder's source as its target: the
     # forward is predicted at the 512 targets (the run encodes 1,024)
     cells += [("seamless-m4t-large-v2 forward", "seamless-m4t-large-v2",
                shape(TGT_LEN, "prefill"), serve("seamless-m4t-large-v2"),
-               sm["forward_s"]),
+               measured(lambda: fam[sm]["forward_s"])),
               ("seamless-m4t-large-v2 decode step", "seamless-m4t-large-v2",
                shape(STEP_DECODE + 1, "decode"),
-               serve("seamless-m4t-large-v2"), sm["decode_s"] / STEP_DECODE)]
+               serve("seamless-m4t-large-v2"),
+               measured(lambda: fam[sm]["decode_s"] / STEP_DECODE))]
     return cells
 
 
@@ -2343,6 +2366,343 @@ def phase_distcalc(seed: int, report: dict) -> dict:
                 f" the predicted order")
     out["failures"] = checks.failures
     log("distcalc: " + json.dumps(out))
+    checks.raise_any()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the dry run's per-chip counts against the run, and at scale
+# ---------------------------------------------------------------------------
+#: the production cells the dryrun phase counts (train_4k, kernel K5's
+#: op for attention), each in a subprocess of its own, all at once: the
+#: three configs one card cannot hold on the single-pod (16, 16) fake
+#: mesh with probes, and the smallest of them on the multi-pod
+#: (2, 16, 16) one.  On meta tensors: no FakeTensorMode dispatch, about
+#: half the seconds a count (the FLOPs are the same)
+DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "single"),
+                ("qwen1.5-32b", "single"), ("llama3-405b", "single"),
+                ("phi3.5-moe-42b-a6.6b", "multi"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _count_cells(report, device: str = DEVICE) -> list:
+    """(cell, arch, a builder of its dry-run Cell, strategy, measured
+    seconds or None) for every cell the run measured, counted on one
+    card's fake tensors of ``device`` at the shapes and with the flash
+    attention it ran: the train step, the lm prefill and decode step,
+    each family's prefill or forward and decode step (a decode step
+    against the cache length it served)."""
+    import dataclasses
+    import functools
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import distcalc as D
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build
+    one = Mesh(("data", "model"), (1, 1))
+    measured = {c[0]: (c[3], c[4]) for c in _distcalc_cells(report)} \
+        if report else {}
+
+    def cfg_of(arch):
+        return dataclasses.replace(get_config(arch), attn_impl="flash")
+
+    def lowered(arch, seq, batch, kind, **kw):
+        return functools.partial(dryrun.lower_cell, cfg_of(arch),
+                                 ShapeConfig(kind, seq, batch, kind), one,
+                                 device=device, **kw)
+
+    def seamless_forward():
+        # what the families phase times: the hidden states of 512 target
+        # tokens over 1,024 source frames (no unembedding)
+        cfg = cfg_of("seamless-m4t-large-v2")
+        model, mode = build(cfg), FakeTensorMode()
+        meta = model.init(0, device="meta")
+        with mode:
+            params = dryrun.abstract(meta, device)
+            tgt = torch.empty((FAM_BATCH, TGT_LEN), dtype=torch.int32,
+                              device=device)
+            src = torch.empty((FAM_BATCH, SRC_LEN, cfg.d_model),
+                              device=device)
+
+        def run():
+            with torch.no_grad():
+                return model.forward(params, tgt, embeds=src, hidden=True)
+
+        return dryrun.Cell(run, (params, tgt, src), one, False, True, mode)
+
+    def serve(arch):
+        return D.Strategy(tp=1, fsdp=False, ep=bool(get_config(arch).moe),
+                          remat=False)
+
+    rows = [("train step", "qwen2-1.5b",
+             lowered("qwen2-1.5b", TRAIN_SEQ, TRAIN_BATCH, "train"),
+             D.Strategy(tp=1, fsdp=False, ep=False, remat=True)),
+            ("lm prefill", "qwen2-1.5b",
+             lowered("qwen2-1.5b", LM_PROMPT, LM_BATCH, "prefill"),
+             serve("qwen2-1.5b")),
+            ("lm decode step", "qwen2-1.5b",
+             lowered("qwen2-1.5b", LM_PROMPT + LM_DECODE, LM_BATCH,
+                     "decode"), serve("qwen2-1.5b"))]
+    for arch in ("granite-moe-1b-a400m", "pixtral-12b"):
+        rows += [(f"{arch} prefill", arch,
+                  lowered(arch, FAM_SEQ, FAM_BATCH, "prefill"), serve(arch)),
+                 (f"{arch} decode step", arch,
+                  lowered(arch, FAM_SEQ + FAM_DECODE, FAM_BATCH, "decode"),
+                  serve(arch))]
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        rows += [(f"{arch} forward", arch,
+                  lowered(arch, FAM_SEQ, FAM_BATCH, "prefill"), serve(arch)),
+                 (f"{arch} decode step", arch,
+                  lowered(arch, STEP_PROMPT + STEP_DECODE, FAM_BATCH,
+                          "decode"), serve(arch))]
+    sm = "seamless-m4t-large-v2"
+    rows += [(f"{sm} forward", sm, seamless_forward, serve(sm)),
+             (f"{sm} decode step", sm,
+              lowered(sm, STEP_DECODE + 1, FAM_BATCH, "decode",
+                      src_len=SRC_LEN), serve(sm))]
+    return [(name, arch, make, strat, measured.get(name, (None, None))[1])
+            for name, arch, make, strat in rows]
+
+
+#: processes counting the measured cells, each cell in one; the xlstm
+#: forward's sLSTM loop (~0.5M small ops, ~2 minutes) is taken first
+COUNT_WORKERS = 3
+SLOWEST_COUNT = "xlstm-350m forward"
+
+
+def _count_named(name: str, device: str) -> dict:
+    """One measured cell's dry-run costs, by name (a worker's task)."""
+    from repro_torch.launch import dryrun
+    make = next(c[2] for c in _count_cells(None, device) if c[0] == name)
+    return dryrun.extract_costs(make())
+
+
+def _fake_counts(report, checks: Checks, device: str = DEVICE) -> list:
+    """Every measured cell counted on one card's fake tensors, in
+    COUNT_WORKERS processes: FLOPs, bytes, collective bytes; distcalc's
+    predicted FLOPs and terms on H100_SXM; the roofline of the count
+    (FLOPs at the bf16 peak, bytes at the HBM rate); the measured
+    seconds and the ratios."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import get_config
+    from repro_torch.core import distcalc as D
+    from repro_torch.core.hardware import H100_SXM
+    one = D.MeshSpec(1, 1, 1)
+    shapes = {c[0]: c[2] for c in _distcalc_cells(None)}
+    cells = _count_cells(report, device)
+    with ProcessPoolExecutor(COUNT_WORKERS, mp_context=multiprocessing.
+                             get_context("spawn")) as pool:
+        counted = {c[0]: pool.submit(_count_named, c[0], device)
+                   for c in sorted(cells, key=lambda c: c[0] !=
+                                   SLOWEST_COUNT)}
+        costs = {name: f.result() for name, f in counted.items()}
+    out = []
+    for name, arch, _, strat, measured in cells:
+        c = costs[name]
+        t = D.synthesize(get_config(arch), shapes[name], one, strat,
+                         H100_SXM)
+        compute_s = c["flops"] / BF16_TC_OPS_PER_S
+        memory_s = c["bytes_accessed"] / HBM_BYTES_PER_S
+        bound = max(compute_s, memory_s)
+        row = {"cell": name, "arch": arch, "count_s": c["seconds"],
+               "flops": c["flops"], "bytes": c["bytes_accessed"],
+               "collective_bytes":
+                   c["collectives"]["moved_bytes_per_chip"],
+               "k5_flops_formula": True,
+               "predicted_flops": t.flops_per_chip,
+               "predicted": t.to_json(), "strategy": strat.describe(),
+               "count_compute_s": compute_s, "count_memory_s": memory_s,
+               "count_bound_s": bound,
+               "count_bound_by": "compute" if compute_s >= memory_s
+               else "memory",
+               "flops_over_predicted": c["flops"] / t.flops_per_chip,
+               "measured_s": measured}
+        if measured is not None:
+            row["measured_over_count_bound"] = measured / bound
+            row["measured_over_predicted"] = measured / t.step_seconds
+        checks.expect(c["flops"] > 0 and math.isfinite(c["bytes_accessed"])
+                      and c["collectives"]["moved_bytes_per_chip"] == 0,
+                      f"dryrun count of {name}: {c}")
+        out.append(row)
+        log(f"dryrun count {name}: {c['flops']:.4e} FLOPs "
+            f"({row['flops_over_predicted']:.3f}x distcalc's "
+            f"{t.flops_per_chip:.4e}), {c['bytes_accessed']:.4e} bytes, "
+            f"collective {row['collective_bytes']:.4e} B; H100 roofline "
+            f"of the count {bound * 1e3:.3f} ms ({row['count_bound_by']}),"
+            f" distcalc {t.step_seconds * 1e3:.3f} ms ({t.dominant}); "
+            + (f"measured {measured * 1e3:.3f} ms: "
+               f"{row['measured_over_count_bound']:.3f}x the count's "
+               f"roofline, {row['measured_over_predicted']:.3f}x distcalc's"
+               if measured is not None else "not measured in this run")
+            + f"; counted in {c['seconds']:.2f} s")
+    return out
+
+
+def _real_step_count(seed: int, fake_flops: float, checks: Checks) -> dict:
+    """One real qwen2-1.5b train step (4 x 2,048, bf16, flash, remat) on
+    the card under the dry run's counter: its FLOPs equal the fake count
+    exactly, K5's 56 launches counted through its flop formula."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.train.loop import init_state, make_train_step
+    cfg = dataclasses.replace(qwen2_1_5b.config(), attn_impl="flash")
+    shape = ShapeConfig("chip_smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model = build(cfg)
+    _free()
+    state = init_state(model, seed, DEVICE)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in make_batch(cfg, shape, 0, seed).items()}
+    step = make_train_step(model, RunConfig())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    counter = dryrun.CostCounter()
+    t0 = time.perf_counter()
+    with counter:
+        _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k5 = _k5_moved({}, launch_counts())
+    loss = float(metrics["loss"])
+    del state, batch, metrics
+    _free()
+    costs = counter.costs()
+    want = 2 * cfg.n_layers
+    out = {"flops": costs["flops"], "fake_flops": fake_flops,
+           "bytes": costs["bytes_accessed"], "local_ops": costs["local_ops"],
+           "k5_launches": k5, "loss": loss, "counted_step_s": seconds}
+    checks.expect(costs["flops"] == fake_flops,
+                  f"dryrun: the real train step counts {costs['flops']!r} "
+                  f"FLOPs, the fake count {fake_flops!r}")
+    checks.expect(k5.get("flash_attention") == want and
+                  k5.get("flash_attention_wgmma") == want,
+                  f"dryrun: the counted real step launched K5 {k5}, "
+                  f"expected {want} on wgmma")
+    checks.expect(math.isfinite(loss), f"dryrun: real step loss {loss}")
+    log(f"dryrun real train step on the card: {costs['flops']:.6e} FLOPs "
+        f"counted, the fake count {fake_flops:.6e} "
+        f"({'equal' if costs['flops'] == fake_flops else 'DIFFERENT'}), "
+        f"K5 {k5}, {seconds:.2f} s under the counter")
+    return out
+
+
+def _start_production_cells():
+    """The DRYRUN_CELLS started through ``python -m
+    repro_torch.launch.dryrun``, one subprocess a cell, all at once, on
+    meta tensors: (their records' directory, the processes)."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", "train_4k", "--mesh", mesh, "--attn-impl",
+               "flash", "--device", "meta", "--out-dir", out_dir]
+        procs.append((arch, mesh, time.perf_counter(), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    return out_dir, procs
+
+
+def _production_cells(started, checks: Checks) -> list:
+    """Waits for the production cells' subprocesses (a failed one fails
+    the phase; one still running at DRYRUN_TIMEOUT_S is killed and
+    fails it) and reads their records: one line a cell."""
+    out_dir, procs = started
+    rows = []
+    for arch, mesh, t0, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            checks.expect(False, f"dryrun {arch} {mesh}: exit "
+                                 f"{proc.returncode}: {err[-3000:]}")
+            continue
+        with open(os.path.join(out_dir, f"{arch}__train_4k__{mesh}.json")
+                  ) as fh:
+            rec = json.load(fh)
+        keys = ("full", "distcalc", "roofline") + (
+            ("probes", "extrapolated") if mesh == "single" else ())
+        checks.expect(all(k in rec for k in keys),
+                      f"dryrun {arch} {mesh}: record keys {sorted(rec)}")
+        full = rec["full"]
+        row = {"arch": arch, "mesh": mesh, "collected_s": wall,
+               "count_s": rec["compile_seconds"],
+               "cell_s": rec["seconds"],
+               "microbatch": rec.get("microbatch"),
+               "n_microbatches": rec.get("n_microbatches"),
+               "flops": full["flops"], "bytes": full["bytes_accessed"],
+               "collective_bytes":
+                   full["collectives"]["moved_bytes_per_chip"],
+               "collectives": full["collectives"]["per_kind_result_bytes"],
+               "memory": full["memory"],
+               "extrapolated": rec.get("extrapolated"),
+               "roofline_h100": rec["roofline"],
+               "roofline_tpu_v5e": rec["roofline_tpu_v5e"],
+               "distcalc_h100": rec["distcalc"],
+               "distcalc_tpu_v5e": rec["distcalc_tpu_v5e"]}
+        rows.append(row)
+        h, v, dc = rec["roofline"], rec["roofline_tpu_v5e"], rec["distcalc"]
+        log(f"dryrun {arch} train_4k {mesh}: full count "
+            f"{rec['compile_seconds']:.1f} s, the cell {rec['seconds']:.1f}"
+            f" s (collected at {wall:.1f} s), "
+            f"microbatch {row['microbatch']} x {row['n_microbatches']}; per "
+            f"chip {full['flops']:.4e} FLOPs, {full['bytes_accessed']:.4e} "
+            f"bytes, {row['collective_bytes']:.4e} collective bytes, "
+            f"arguments {full['memory']['argument_size_in_bytes'] / 1e9:.2f}"
+            f" GB; H100_SXM compute/memory/collective {h['compute_s']:.3f}/"
+            f"{h['memory_s']:.3f}/{h['collective_s']:.3f} s, TPU_V5E "
+            f"{v['compute_s']:.3f}/{v['memory_s']:.3f}/"
+            f"{v['collective_s']:.3f} s; distcalc ({dc['strategy']}) "
+            f"{dc['compute_s']:.3f}/{dc['memory_s']:.3f}/"
+            f"{dc['collective_s']:.3f} s; useful_flops_ratio "
+            f"{h['useful_flops_ratio']:.4f}")
+    return rows
+
+
+def phase_dryrun(seed: int, report) -> dict:
+    """``repro_torch.launch.dryrun`` on the card: every measured cell
+    counted on one card's fake CUDA tensors beside distcalc's prediction
+    and the run's time; one real train step counted under the same
+    counter, its FLOPs the fake count's exactly; the production cells on
+    their fake meshes, in subprocesses started first, which run while
+    this process counts.  Every check runs before the phase fails on
+    any."""
+    checks = Checks()
+    t0 = time.perf_counter()
+    started = _start_production_cells()
+    try:
+        counts = _fake_counts(report, checks)
+        counts_s = time.perf_counter() - t0
+        train_flops = next(r["flops"] for r in counts if r["cell"] ==
+                           "train step")
+        t1 = time.perf_counter()
+        real = _real_step_count(seed, train_flops, checks)
+        real_s = time.perf_counter() - t1
+    except BaseException:
+        for *_, proc in started[1]:      # none outlives a failed phase
+            proc.kill()
+            proc.communicate()
+        raise
+    production = _production_cells(started, checks)
+    production_s = time.perf_counter() - t0
+    out = {"counts": counts, "counts_s": counts_s, "real_step": real,
+           "real_step_s": real_s, "production": production,
+           "production_s": production_s, "failures": checks.failures}
+    log("dryrun: " + json.dumps(out, default=str))
     checks.raise_any()
     return out
 
@@ -3103,13 +3463,14 @@ def main(argv=None) -> int:
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
     parser.add_argument("--only", choices=["whatif", "stores", "k5",
-                                           "train"],
+                                           "train", "dryrun"],
                         default=None,
                         help="whatif: run that phase alone, without the "
                              "check of its launches; stores: time K1 and "
                              "the bloom_probe op at the kvstore shapes; k5: "
                              "time K5 and SDPA at the lm and family shapes; "
-                             "train: the train phase alone.  "
+                             "train: the train phase alone; dryrun: "
+                             "the dryrun phase alone (no measured times).  "
                              "Each prints its report but no kernels line "
                              "and no result line (to time an older "
                              "checkout's src/ with this script)")
@@ -3134,7 +3495,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     names = {"stores": [n for n in build.SOURCES if n != "flash_attention"],
              "k5": ["flash_attention"],
-             "train": ["flash_attention"]}.get(args.only,
+             "train": ["flash_attention"],
+             "dryrun": ["flash_attention"]}.get(args.only,
                                                list(build.SOURCES))
     build.build(names)
     report["nvcc_build_s"] = time.perf_counter() - t0
@@ -3160,6 +3522,14 @@ def main(argv=None) -> int:
     if args.only == "train":
         report["train"] = phase_train(args.seed)
         _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
+    if args.only == "dryrun":
+        t0 = time.perf_counter()
+        report["dryrun"] = phase_dryrun(args.seed, None)
+        report["dryrun_phase_s"] = time.perf_counter() - t0
+        _write_report(args.report, report)
+        log(f"dryrun phase {report['dryrun_phase_s']:.1f} s")
         log(_nvidia_smi())
         return 0
     t0 = time.perf_counter()
@@ -3268,6 +3638,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report["distcalc"] = phase_distcalc(args.seed, report)
     report["distcalc_phase_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    report["dryrun"] = phase_dryrun(args.seed, report)
+    report["dryrun_phase_s"] = time.perf_counter() - t0
+    log(f"dryrun phase {report['dryrun_phase_s']:.1f} s")
     what_if = report["distcalc"].get("what_if", {})
     seamless = fam["seamless-m4t-large-v2"]
     kernels[5]["launches_by_path"] = {
@@ -3284,7 +3659,9 @@ def main(argv=None) -> int:
         f"qwen2-1.5b train, resumed at step {TRAIN_CKPT_EVERY}":
             tr["resume_launches"],
         f"qwen2-1.5b remat-off what-if, {WHATIF_STEPS} steps":
-            what_if.get("k5_launches")}
+            what_if.get("k5_launches"),
+        "qwen2-1.5b train step counted by the dry run's counter":
+            report["dryrun"]["real_step"]["k5_launches"]}
     kernels[5]["train_path"] = {
         "shape": f"[{TRAIN_BATCH},{12},{TRAIN_SEQ},128] kv_heads=2 bf16 "
                  f"causal (the lm row's shape)",

@@ -106,8 +106,8 @@ def _dec_body(layer: Params, x: torch.Tensor, enc_out: torch.Tensor,
 def _cross_kv(layer: Params, enc_out: torch.Tensor, cfg: ArchConfig):
     dtype = cfg.cdtype()
     xattn = layer["xattn"]
-    k = torch.einsum("bsd,dhk->bshk", enc_out, xattn["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, xattn["wv"].to(dtype))
+    k = ctx.einsum("bsd,dhk->bshk", enc_out, xattn["wk"].to(dtype))
+    v = ctx.einsum("bsd,dhk->bshk", enc_out, xattn["wv"].to(dtype))
     if "bk" in xattn:
         k = k + xattn["bk"].to(dtype)
         v = v + xattn["bv"].to(dtype)
@@ -178,10 +178,12 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
         # cross attention against the precomputed encoder KV
         h = L.rmsnorm(layer["ln_x"], x, cfg.norm_eps)
         q, _, _ = L._qkv(layer["xattn"], h, cfg, pos[:, None], rope=False)
-        out = L.chunked_attention(q, cache["xk"][i], cache["xv"][i],
-                                  causal=False, unroll=cfg.scan_unroll)
-        x = x + torch.einsum("bshk,hkd->bsd", out,
-                             layer["xattn"]["wo"].to(dtype))
+        out = ctx.heads_local(
+            lambda q, k, v: L.chunked_attention(q, k, v, causal=False,
+                                                unroll=cfg.scan_unroll),
+            q, cache["xk"][i], cache["xv"][i])
+        x = x + ctx.einsum("bshk,hkd->bsd", out,
+                           layer["xattn"]["wo"].to(dtype))
         x = x + L.mlp(layer["mlp"],
                       L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -129,7 +129,7 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
                                  state, cfg)
         x = x + y
         for name, t in state.items():
-            mamba[name][i] = t
+            ctx.set_layer(mamba[name], i, t)
         if i % k_mamba == 0:
             h = L.rmsnorm(shared["ln1"], x, cfg.norm_eps)
             y, _, _ = L.decode_attention(shared["attn"], h, cfg,

@@ -7,10 +7,11 @@ dicts, and the reference's ``scan_layers`` (``lax.scan`` over a stacked
 leading axis) becomes a loop over that list in the callers.  The
 reference's ``ctx.constrain_*`` sharding hints sit where the reference's
 do; they are the identity on one device.  On a mesh of several devices
-the tensors are DTensors: the embedding table is gathered for its lookup,
-attention runs on each rank's shard of the batch and heads
-(``ctx.heads_local``), and the decode step writes each rank's rows of its
-cache in place.
+the tensors are DTensors: the weight products are each rank's local
+product (``ctx.einsum``), the embedding table is gathered for each
+rank's lookup of its own tokens, attention runs on each rank's shard of
+the batch and heads (``ctx.heads_local``), and the decode step writes
+each rank's rows of its cache in place.
 """
 from __future__ import annotations
 
@@ -122,9 +123,9 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ArchConfig,
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dtype = cfg.cdtype()
     x = ctx.enter_block(x)
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    q = ctx.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    k = ctx.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
+    v = ctx.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
     if "bq" in params:
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
@@ -225,7 +226,7 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
         causal = False
     out = core_attention(q, k, v, cfg, causal)
     return ctx.exit_block(
-        torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype)))
+        ctx.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype)))
 
 
 def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -264,7 +265,7 @@ def decode_attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
     out = ctx.heads_local(
         lambda q, kc, vc, p: _decode_core(q, kc, vc, p, dtype, cache_len),
         q, k_cache, v_cache, pos)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    y = ctx.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return y, k_cache, v_cache
 
 
@@ -322,11 +323,11 @@ def mlp(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dtype = cfg.cdtype()
     x = ctx.enter_block(x)
     gate = ctx.constrain_ffn(
-        torch.einsum("bsd,df->bsf", x, params["w_gate"].to(dtype)))
+        ctx.einsum("bsd,df->bsf", x, params["w_gate"].to(dtype)))
     up = ctx.constrain_ffn(
-        torch.einsum("bsd,df->bsf", x, params["w_up"].to(dtype)))
-    return ctx.exit_block(torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
-                                       params["w_down"].to(dtype)))
+        ctx.einsum("bsd,df->bsf", x, params["w_up"].to(dtype)))
+    return ctx.exit_block(ctx.einsum("bsf,fd->bsd", F.silu(gate) * up,
+                                     params["w_down"].to(dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -346,9 +347,12 @@ def init_embed(gen: torch.Generator, cfg: ArchConfig, device=None
 def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig
           ) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather.
-    # A table split over the vocabulary is gathered whole first: DTensor's
-    # lookup in a vocab-sharded table cannot be differentiated
-    return ctx.gathered(params["tok"])[tokens.long()].to(cfg.cdtype())
+    # On a mesh each rank looks its own tokens up in the whole table
+    # (gathered): DTensor's lookup in a vocab-sharded table cannot be
+    # differentiated, and it places the lookup's backward differently
+    # from one torch version to the next
+    return ctx.batch_local(lambda tok, table: table[tok.long()], (tokens,),
+                           (params["tok"],)).to(cfg.cdtype())
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig
@@ -356,5 +360,5 @@ def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig
     dtype = cfg.cdtype()
     x = ctx.enter_block(x)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["tok"].to(dtype))
-    return torch.einsum("bsd,dv->bsv", x, params["head"].to(dtype))
+        return ctx.einsum("bsd,vd->bsv", x, params["tok"].to(dtype))
+    return ctx.einsum("bsd,dv->bsv", x, params["head"].to(dtype))

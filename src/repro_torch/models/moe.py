@@ -49,18 +49,18 @@ def capacity(n_tokens: int, cfg: ArchConfig) -> int:
     return max(min(c, n_tokens), 1)
 
 
-def route(params: Params, xt: torch.Tensor, cfg: ArchConfig
-          ) -> Dict[str, torch.Tensor]:
-    """The router's decisions for tokens ``xt`` [T, D]: ``gate_idx`` [T, k]
-    (experts by falling probability), ``token_ids`` [E, C] (each expert's
-    tokens by priority), the assignment ``mask`` [T, E], ``gathered_mask``
-    [E, C] (0 where an expert's slot is padding), the gate weights
-    ``combine_w`` [T, E] and the Switch auxiliary loss ``aux``."""
+#: the keys of :func:`route`'s result, in the order its local step gives
+ROUTE_KEYS = ("gate_idx", "token_ids", "mask", "gathered_mask", "combine_w",
+              "aux")
+
+
+def _route(logits: torch.Tensor, cfg: ArchConfig):
+    """The router's decisions from its logits [T, E], in ROUTE_KEYS'
+    order."""
     moe = cfg.moe
-    t = xt.shape[0]
+    t = logits.shape[0]
     e, k = moe.n_experts, moe.top_k
     c = capacity(t, cfg)
-    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                     # [T, E]
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # [T, k]
     gate_vals = gate_vals / torch.clamp_min(
@@ -77,12 +77,25 @@ def route(params: Params, xt: torch.Tensor, cfg: ArchConfig
 
     # top-C tokens per expert by priority (assigned first, then in order)
     priority = mask.T * (t * 2.0) - torch.arange(
-        t, dtype=torch.float32, device=xt.device)[None, :]
+        t, dtype=torch.float32, device=logits.device)[None, :]
     token_ids = torch.topk(priority, c, dim=1).indices        # [E, C]
     gathered_mask = torch.gather(mask.T, 1, token_ids)        # [E, C]
-    return {"gate_idx": gate_idx, "token_ids": token_ids, "mask": mask,
-            "gathered_mask": gathered_mask, "combine_w": combine_w,
-            "aux": aux}
+    return gate_idx, token_ids, mask, gathered_mask, combine_w, aux
+
+
+def route(params: Params, xt: torch.Tensor, cfg: ArchConfig
+          ) -> Dict[str, torch.Tensor]:
+    """The router's decisions for tokens ``xt`` [T, D]: ``gate_idx`` [T, k]
+    (experts by falling probability), ``token_ids`` [E, C] (each expert's
+    tokens by priority), the assignment ``mask`` [T, E], ``gathered_mask``
+    [E, C] (0 where an expert's slot is padding), the gate weights
+    ``combine_w`` [T, E] and the Switch auxiliary loss ``aux``.  On a
+    mesh, every rank routes every token (``ctx.replicated_local``)."""
+    logits = ctx.einsum("td,de->te", xt.to(torch.float32),
+                        params["router"].to(torch.float32))
+    out = ctx.replicated_local(lambda lg: _route(lg, cfg), (logits,),
+                               n_out=len(ROUTE_KEYS))
+    return dict(zip(ROUTE_KEYS, out))
 
 
 def dropped(r: Dict[str, torch.Tensor]) -> int:
@@ -100,23 +113,37 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
         t = b * s
         e = cfg.moe.n_experts
         dtype = cfg.cdtype()
-        xt = x.reshape(t, d)
+        # the routing is global, as the reference's: on a mesh every rank
+        # routes every token (the tokens gathered, flattened locally: a
+        # DTensor view of the split batch and sequence as one dim leaves
+        # its backward a strided shard), and the experts run split by the
+        # expert constraint
+        xt = ctx.replicated_local(lambda x: x.reshape(t, d), (x,))
         r = route(params, xt, cfg)
         token_ids = r["token_ids"]
         c = token_ids.shape[1]
 
-        xg = xt[token_ids.reshape(-1)].reshape(e, c, d).to(dtype)
-        xg = xg * r["gathered_mask"][..., None].to(dtype)    # zero padding
+        def dispatch(xt, ids, gm):
+            xg = xt[ids.reshape(-1)].reshape(e, c, d).to(dtype)
+            return xg * gm[..., None].to(dtype)              # zero padding
+
+        xg = ctx.replicated_local(dispatch, (xt, token_ids,
+                                             r["gathered_mask"]))
         # expert-parallel dispatch: [E, C, D] split on the expert axis
         xg = ctx.constrain_experts(xg)
-        gate = torch.bmm(xg, params["w_gate"].to(dtype))
-        up = torch.bmm(xg, params["w_up"].to(dtype))
-        out = ctx.constrain_experts(
-            torch.bmm(F.silu(gate) * up, params["w_down"].to(dtype)))
+        gate = ctx.einsum("ecd,edf->ecf", xg, params["w_gate"].to(dtype))
+        up = ctx.einsum("ecd,edf->ecf", xg, params["w_up"].to(dtype))
+        out = ctx.constrain_experts(ctx.einsum(
+            "ecf,efd->ecd", F.silu(gate) * up, params["w_down"].to(dtype)))
 
         # combine: scatter-add expert outputs weighted by the router gates
-        w = torch.gather(r["combine_w"].T, 1, token_ids)     # [E, C]
-        flat_out = (out * w[..., None].to(dtype)).reshape(e * c, d)
-        y = torch.zeros((t, d), dtype=dtype, device=x.device).index_add_(
-            0, token_ids.reshape(-1), flat_out)
-        return y.reshape(b, s, d), r["aux"].to(torch.float32)
+        def combine(out, combine_w, ids):
+            w = torch.gather(combine_w.T, 1, ids)            # [E, C]
+            flat_out = (out * w[..., None].to(dtype)).reshape(e * c, d)
+            y = torch.zeros((t, d), dtype=dtype,
+                            device=out.device).index_add_(
+                0, ids.reshape(-1), flat_out)
+            return y.reshape(b, s, d)
+
+        y = ctx.replicated_local(combine, (out, r["combine_w"], token_ids))
+        return y, r["aux"].to(torch.float32)

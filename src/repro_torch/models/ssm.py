@@ -11,6 +11,7 @@ scans carry ``torch.profiler`` spans (``chunked_linear_scan``,
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -155,8 +156,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _mamba2_project(params: Params, x: torch.Tensor, cfg: ArchConfig):
     d_in, hd, h, n = mamba2_dims(cfg)
-    proj = torch.einsum("bsd,de->bse", x,
-                        params["in_proj"].to(cfg.cdtype()))
+    proj = ctx.einsum("bsd,de->bse", x,
+                      params["in_proj"].to(cfg.cdtype()))
     z, xin, Bv, Cv, dt = torch.split(proj, [d_in, d_in, n, n, h], dim=-1)
     return ctx.constrain_ffn(z), ctx.constrain_ffn(xin), Bv, Cv, dt
 
@@ -167,12 +168,19 @@ def _mamba2_dt(params: Params, dt: torch.Tensor):
     return dt, dt * -torch.exp(params["A_log"])
 
 
-def mamba2_forward(params: Params, x: torch.Tensor, cfg: ArchConfig
-                   ) -> torch.Tensor:
-    b, s, _ = x.shape
+#: the Mamba2 parameters its token mixing (conv, scan, gate, norm) reads
+MIX_WEIGHTS = ("conv_w", "conv_b", "dt_bias", "A_log", "D_skip",
+               "norm_scale")
+
+
+def _mamba2_mix(cfg: ArchConfig, z, xin, Bv, Cv, dt, *weights
+                ) -> torch.Tensor:
+    """The conv, the chunked scan, the skip, the gate and the norm over
+    the projections [b, s, .]: the gated, normed [b, s, d_in]."""
+    params = dict(zip(MIX_WEIGHTS, weights))
+    b, s, _ = xin.shape
     d_in, hd, h, n = mamba2_dims(cfg)
     dtype = cfg.cdtype()
-    z, xin, Bv, Cv, dt = _mamba2_project(params, x, cfg)
     conv_out, _ = _causal_conv(torch.cat([xin, Bv, Cv], dim=-1),
                                params["conv_w"].to(dtype),
                                params["conv_b"].to(dtype))
@@ -185,8 +193,18 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ArchConfig
     y = y + params["D_skip"][None, None, :, None].to(dtype) * \
         xin.reshape(b, s, h, hd)
     y = y.reshape(b, s, d_in) * F.silu(z)
-    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, params["out_proj"].to(dtype))
+    return rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+
+
+def mamba2_forward(params: Params, x: torch.Tensor, cfg: ArchConfig
+                   ) -> torch.Tensor:
+    """The projections and ``out_proj`` split as the rules place their
+    weights; the token mixing on each rank's shard of the batch."""
+    y = ctx.batch_local(functools.partial(_mamba2_mix, cfg),
+                        _mamba2_project(params, x, cfg),
+                        [params[k] for k in MIX_WEIGHTS])
+    return ctx.einsum("bse,ed->bsd", y,
+                      params["out_proj"].to(cfg.cdtype()))
 
 
 def mamba2_init_state(cfg: ArchConfig, batch: int, device=None) -> Params:
@@ -198,27 +216,38 @@ def mamba2_init_state(cfg: ArchConfig, batch: int, device=None) -> Params:
                                 dtype=cfg.cdtype(), device=dev)}
 
 
-def mamba2_step(params: Params, x: torch.Tensor, state: Params,
-                cfg: ArchConfig) -> Tuple[torch.Tensor, Params]:
-    """One-token decode. x [b,1,d]."""
-    b = x.shape[0]
+def _mamba2_step_mix(cfg: ArchConfig, z, xin, Bv, Cv, dt, h_state,
+                     conv_state, *weights):
+    """One token's conv, scan step, skip, gate and norm: (y [b, 1,
+    d_in], the new scan state, the new conv state)."""
+    params = dict(zip(MIX_WEIGHTS, weights))
+    b = xin.shape[0]
     d_in, hd, h, n = mamba2_dims(cfg)
     dtype = cfg.cdtype()
-    z, xin, Bv, Cv, dt = _mamba2_project(params, x, cfg)
     conv_out, conv_state = _causal_conv(
         torch.cat([xin, Bv, Cv], dim=-1), params["conv_w"].to(dtype),
-        params["conv_b"].to(dtype), state["conv"])
+        params["conv_b"].to(dtype), conv_state)
     xin, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
     dt, loga = _mamba2_dt(params, dt[:, 0])                 # [b,h]
     xh = xin[:, 0].reshape(b, h, hd) * dt[..., None].to(dtype)
     Bh = Bv[:, 0, None, :].expand(b, h, n).to(dtype)
     Ch = Cv[:, 0, None, :].expand(b, h, n).to(dtype)
-    h_new, y = linear_scan_step(state["h"], xh, Bh, Ch, loga)
+    h_new, y = linear_scan_step(h_state, xh, Bh, Ch, loga)
     y = y + params["D_skip"][None, :, None].to(dtype) * \
         xin[:, 0].reshape(b, h, hd)
     y = y.reshape(b, 1, d_in) * F.silu(z)
     y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, params["out_proj"].to(dtype))
+    return y, h_new, conv_state
+
+
+def mamba2_step(params: Params, x: torch.Tensor, state: Params,
+                cfg: ArchConfig) -> Tuple[torch.Tensor, Params]:
+    """One-token decode. x [b,1,d]."""
+    y, h_new, conv_state = ctx.batch_local(
+        functools.partial(_mamba2_step_mix, cfg),
+        (*_mamba2_project(params, x, cfg), state["h"], state["conv"]),
+        [params[k] for k in MIX_WEIGHTS], n_out=3)
+    out = ctx.einsum("bse,ed->bsd", y, params["out_proj"].to(cfg.cdtype()))
     return out, {"h": h_new, "conv": conv_state}
 
 
@@ -252,25 +281,30 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
     }
 
 
-def _mlstm_gates(params: Params, xu: torch.Tensor):
+def _mlstm_gates(xu: torch.Tensor, w_fgate: torch.Tensor,
+                 w_igate: torch.Tensor, fgate_bias: torch.Tensor):
     """Stabilized gating: sigmoid forget in log space, exp input gate folded
     into the key scaling (chunk-stable simplification of xLSTM eq. 19-27)."""
     xf = xu.to(torch.float32)
-    logf = F.logsigmoid(xf @ params["w_fgate"] + params["fgate_bias"])
-    igate = torch.sigmoid(xf @ params["w_igate"])
+    logf = F.logsigmoid(xf @ w_fgate + fgate_bias)
+    igate = torch.sigmoid(xf @ w_igate)
     return logf, igate                                      # [b,s,h]
 
 
 def _mlstm_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
     d_in, h, hd = xlstm_dims(cfg)
     dtype = cfg.cdtype()
-    up = torch.einsum("bsd,de->bse", x, params["up_proj"].to(dtype))
+    up = ctx.einsum("bsd,de->bse", x, params["up_proj"].to(dtype))
     xu, z = torch.chunk(up, 2, dim=-1)
-    q = torch.einsum("bse,ehk->bshk", xu, params["wq"].to(dtype))
-    k = torch.einsum("bse,ehk->bshk", xu, params["wk"].to(dtype)) / \
+    q = ctx.einsum("bse,ehk->bshk", xu, params["wq"].to(dtype))
+    k = ctx.einsum("bse,ehk->bshk", xu, params["wk"].to(dtype)) / \
         math.sqrt(hd)
-    v = torch.einsum("bse,ehk->bshk", xu, params["wv"].to(dtype))
-    logf, igate = _mlstm_gates(params, xu)
+    v = ctx.einsum("bse,ehk->bshk", xu, params["wv"].to(dtype))
+    # on each rank's batch shard (logsigmoid's backward has no DTensor
+    # sharding rule)
+    logf, igate = ctx.batch_local(
+        _mlstm_gates, (xu,), [params[k] for k in ("w_fgate", "w_igate",
+                                                  "fgate_bias")], n_out=2)
     return q, k * igate[..., None].to(dtype), v, logf, z
 
 
@@ -279,14 +313,17 @@ def _mlstm_out(params: Params, y: torch.Tensor, z: torch.Tensor,
     b, s = z.shape[:2]
     y = y.reshape(b, s, -1) * F.silu(z)
     y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y,
-                        params["down_proj"].to(cfg.cdtype()))
+    return ctx.einsum("bse,ed->bsd", y,
+                      params["down_proj"].to(cfg.cdtype()))
 
 
 def mlstm_forward(params: Params, x: torch.Tensor, cfg: ArchConfig
                   ) -> torch.Tensor:
     q, k, v, logf, z = _mlstm_qkv(params, x, cfg)
-    y, _ = chunked_linear_scan(v, k, q, logf, cfg.ssm_chunk)
+    y = ctx.batch_local(
+        lambda q, k, v, logf: chunked_linear_scan(v, k, q, logf,
+                                                  cfg.ssm_chunk)[0],
+        (q, k, v, logf))
     return _mlstm_out(params, y, z, cfg)
 
 
@@ -300,8 +337,10 @@ def mlstm_init_state(cfg: ArchConfig, batch: int, device=None
 def mlstm_step(params: Params, x: torch.Tensor, state: torch.Tensor,
                cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     q, k, v, logf, z = _mlstm_qkv(params, x, cfg)
-    state, y = linear_scan_step(state, v[:, 0], k[:, 0], q[:, 0],
-                                logf[:, 0])
+    state, y = ctx.batch_local(
+        lambda state, q, k, v, logf: linear_scan_step(
+            state, v[:, 0], k[:, 0], q[:, 0], logf[:, 0]),
+        (state, q, k, v, logf), n_out=2)
     return _mlstm_out(params, y, z, cfg), state
 
 
@@ -354,30 +393,55 @@ def _slstm_cell(params: Params, xt: torch.Tensor, state: Params
     return {"c": c_new, "n": n_new, "hid": hid_new, "m": m_new}, hid_new
 
 
+#: the sLSTM state's tensors, in the order the local steps take them
+SLSTM_STATE = ("c", "n", "hid", "m")
+
+
 def _slstm_out(params: Params, y: torch.Tensor, cfg: ArchConfig
                ) -> torch.Tensor:
     dtype = cfg.cdtype()
     y = rmsnorm({"scale": params["norm_scale"]}, y.to(dtype), cfg.norm_eps)
-    return torch.einsum("bsd,de->bse", y, params["out_proj"].to(dtype))
+    return ctx.einsum("bsd,de->bse", y, params["out_proj"].to(dtype))
+
+
+def _slstm_scan(cfg: ArchConfig, xt: torch.Tensor, r: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """The recurrence over time, xt [b, s, 4, h, hd] -> [b, s, d]."""
+    b, s = xt.shape[:2]
+    state = slstm_init_state(cfg, b, device=xt.device)
+    outs = []
+    with torch.profiler.record_function("slstm_scan"):
+        for t in range(s):
+            state, out = _slstm_cell({"r": r, "bias": bias}, xt[:, t],
+                                     state)
+            outs.append(out)
+    return torch.stack(outs, dim=1).reshape(b, s, cfg.d_model)
 
 
 def slstm_forward(params: Params, x: torch.Tensor, cfg: ArchConfig
                   ) -> torch.Tensor:
-    b, s, d = x.shape
-    xt = torch.einsum("bsd,dghk->bsghk", x, params["w_in"].to(cfg.cdtype()))
-    state = slstm_init_state(cfg, b, device=x.device)
-    outs = []
-    with torch.profiler.record_function("slstm_scan"):
-        for t in range(s):
-            state, out = _slstm_cell(params, xt[:, t], state)
-            outs.append(out)
-    return _slstm_out(params, torch.stack(outs, dim=1).reshape(b, s, d), cfg)
+    """The projections split as the rules place their weights; the loop
+    over time on each rank's shard of the batch (one local step a token,
+    never a DTensor op)."""
+    xt = ctx.einsum("bsd,dghk->bsghk", x, params["w_in"].to(cfg.cdtype()))
+    y = ctx.batch_local(functools.partial(_slstm_scan, cfg), (xt,),
+                        (params["r"], params["bias"]))
+    return _slstm_out(params, y, cfg)
+
+
+def _slstm_step_local(xt, c, n, hid, m, r, bias):
+    state, out = _slstm_cell({"r": r, "bias": bias}, xt,
+                             {"c": c, "n": n, "hid": hid, "m": m})
+    return (*(state[k] for k in SLSTM_STATE), out)
 
 
 def slstm_step(params: Params, x: torch.Tensor, state: Params,
                cfg: ArchConfig) -> Tuple[torch.Tensor, Params]:
     b, _, d = x.shape
-    xt = torch.einsum("bsd,dghk->bsghk", x,
-                      params["w_in"].to(cfg.cdtype()))[:, 0]
-    state, out = _slstm_cell(params, xt, state)
-    return _slstm_out(params, out.reshape(b, 1, d), cfg), state
+    xt = ctx.einsum("bsd,dghk->bsghk", x,
+                    params["w_in"].to(cfg.cdtype()))[:, 0]
+    *new, out = ctx.batch_local(
+        _slstm_step_local, (xt, *(state[k] for k in SLSTM_STATE)),
+        (params["r"], params["bias"]), n_out=5)
+    return (_slstm_out(params, out.reshape(b, 1, d), cfg),
+            dict(zip(SLSTM_STATE, new)))

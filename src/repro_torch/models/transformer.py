@@ -144,26 +144,27 @@ def prefill(params: Params, tokens: Optional[torch.Tensor], cfg: ArchConfig,
             max_len: int, embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Run the full-sequence forward while materializing the KV cache
-    ([L, B, max_len, KH, hd], zero past the prompt).  ``embeds`` are a
-    VLM's patch embeddings, placed before ``tokens``."""
+    ([L, B, max_len, KH, hd], zero past the prompt; on a mesh, DTensors
+    placed by the cache rules, each rank writing its own shard).
+    ``embeds`` are a VLM's patch embeddings, placed before ``tokens``."""
     x = _inputs(params, tokens, cfg, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     hd = cfg.resolved_head_dim
     shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, hd)
-    ks = torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
-    vs = torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
+    cache = ctx.cache_zeros({"k": shape, "v": shape}, cfg.cdtype(), x, cfg,
+                            b)
     for i, layer in enumerate(params["layers"]):
         h = L.rmsnorm(layer["ln1"], x, cfg.norm_eps)
         q, k, v = L._qkv(layer["attn"], h, cfg, positions)
         out = L.core_attention(q, k, v, cfg, causal=True)
-        y = torch.einsum("bshk,hkd->bsd", out,
-                         layer["attn"]["wo"].to(cfg.cdtype()))
+        y = ctx.einsum("bshk,hkd->bsd", out,
+                       layer["attn"]["wo"].to(cfg.cdtype()))
         x = ctx.constrain_residual(x + y)
         x = ctx.constrain_residual(
             x + _ffn(layer, L.rmsnorm(layer["ln2"], x, cfg.norm_eps), cfg)[0])
-        ks[i, :, :s] = k
-        vs[i, :, :s] = v
+        ctx.write_prefix(cache["k"], i, k)
+        ctx.write_prefix(cache["v"], i, v)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x[:, -1:], cfg)
-    return logits[:, 0], {"k": ks, "v": vs}
+    return logits[:, 0], cache

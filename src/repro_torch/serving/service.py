@@ -455,19 +455,15 @@ class DesignCalculatorService:
 
     def _fail_pending(self) -> None:
         """Fail every request still queued after the worker has exited."""
-        failed = 0
         for req, lane, pos in self._sched.drain():
             if req.future.done():
                 continue
+            self._count("failed")
+            self._count("stopped_requests")
             req.future.set_exception(ServiceStoppedError(
                 f"service stopped before serving this request "
                 f"(position {pos} in the {lane} lane)",
                 queue_position=pos))
-            failed += 1
-        if failed:
-            with self._lock:
-                self._stats.failed += failed
-                self._stats.stopped_requests += failed
 
     close = stop
 
@@ -933,18 +929,14 @@ class DesignCalculatorService:
     def _crash_inflight(self, exc: BaseException, restarts: int) -> None:
         """Fail the crashed window's in-flight futures with WorkerCrashed."""
         inflight, self._inflight = self._inflight, []
-        failed = 0
         for req in inflight:
             if req.future.done():
                 continue
+            self._count("failed")
             req.future.set_exception(WorkerCrashed(
                 f"serving worker crashed mid-window ({exc!r}); the "
                 f"request was not served and will not be replayed — "
                 f"resubmit if still wanted", cause=exc, restarts=restarts))
-            failed += 1
-        if failed:
-            with self._lock:
-                self._stats.failed += failed
 
     def _loop(self) -> None:
         while True:
@@ -1015,15 +1007,21 @@ class DesignCalculatorService:
         """Fail a request whose deadline passed before it finished."""
         req.dead = True
         late = now - req.deadline
+        self._count("expired")
         req.future.set_exception(DeadlineExceeded(
             f"deadline of {req.deadline_s:.3f}s exceeded before serving "
             f"({late * 1e3:.1f} ms late)",
             deadline_s=req.deadline_s or 0.0, late_by_s=late))
-        with self._lock:
-            self._stats.expired += 1
 
-    def _finalize(self, req: _Request) -> bool:
-        """Resolve one fully-scored request; True on success."""
+    def _count(self, outcome: str) -> None:
+        """One request's outcome counted, before its future resolves: a
+        client that reads ``stats()`` once its answer arrives sees it
+        counted."""
+        with self._lock:
+            setattr(self._stats, outcome, getattr(self._stats, outcome) + 1)
+
+    def _finalize(self, req: _Request) -> None:
+        """Resolve one fully-scored request, counted first."""
         try:
             for ev in req.evals:
                 if ev.error is not None:
@@ -1036,11 +1034,12 @@ class DesignCalculatorService:
             if engines and hasattr(answer, "engine"):
                 answer.engine = engines[0] if len(engines) == 1 \
                     else ",".join(engines)
-            req.future.set_result(answer)
-            return True
         except Exception as exc:
+            self._count("failed")
             req.future.set_exception(exc)
-            return False
+            return
+        self._count("answered")
+        req.future.set_result(answer)
 
     def _score_group(self, evals: List[_Evaluation], hw: HardwareProfile,
                      points, probe: Callable[[int], bool],
@@ -1215,7 +1214,7 @@ class DesignCalculatorService:
         groups: Dict[Tuple, List[_Evaluation]] = {}
         live: List[_Request] = []
         now = time.monotonic()
-        cancelled = failed = 0
+        cancelled = 0
         for req in batch:
             # Future-based cancel: a request cancelled before the worker
             # picked it up is dropped without packing or scoring
@@ -1230,8 +1229,8 @@ class DesignCalculatorService:
                     ev.owner = req
                     ev.packed = self._pack(ev)
             except Exception as exc:
+                self._count("failed")
                 req.future.set_exception(exc)
-                failed += 1
                 continue
             req.remaining = len(req.evals)
             for ev in req.evals:
@@ -1245,7 +1244,7 @@ class DesignCalculatorService:
 
         ordered = sorted(groups.items(), key=_rank) \
             if self._lanes_enabled else list(groups.items())
-        score_calls = answered = shard_dispatches = 0
+        score_calls = shard_dispatches = 0
         for (hw_name, points), evals in ordered:
             # deadline re-check between coalesced scoring calls: expired
             # requests fail fast instead of occupying this fused call
@@ -1295,24 +1294,16 @@ class DesignCalculatorService:
                 if req.remaining == 0 and self._lanes_enabled:
                     # eager resolution: the future resolves the moment
                     # its last group scored, ahead of later bulk groups
-                    if self._finalize(req):
-                        answered += 1
-                    else:
-                        failed += 1
+                    self._finalize(req)
         for req in live:   # FIFO mode, plus any defensive leftovers
             if req.dead or req.future.done():
                 continue
-            if self._finalize(req):
-                answered += 1
-            else:
-                failed += 1
+            self._finalize(req)
         with self._lock:
             st = self._stats
             st.batches += 1
             st.score_calls += score_calls
             st.shard_dispatches += shard_dispatches
-            st.answered += answered
-            st.failed += failed
             st.cancelled += cancelled
             st.max_batch = max(st.max_batch, len(batch))
             if len(batch) > 1:

@@ -411,8 +411,7 @@ def test_constraints_return_their_input_on_the_host_mesh():
         x = torch.ones((2, 16, cfg.d_model))
         with ctx.mesh_context(host_mesh()), ctx.options(seq_parallel=True):
             for fn in (ctx.constrain_bsd, ctx.constrain_residual,
-                       ctx.constrain_ffn, ctx.constrain_logits,
-                       ctx.gathered):
+                       ctx.constrain_ffn, ctx.constrain_logits):
                 assert fn(x) is x
             h = torch.ones((2, 16, cfg.n_heads, 16))
             assert ctx.constrain_heads(h) is h

@@ -150,7 +150,9 @@ def test_flash_attention_grad_matches_reference():
 
 def test_flash_attention_routes_by_device():
     """CPU tensors take the plain version (no launch); the kernel wrapper
-    refuses CPU tensors and the op refuses other devices."""
+    refuses CPU tensors; meta tensors take the op's shape-only
+    implementation (the dry run's), which the routes to the kernel and
+    the plain version refuse."""
     x = torch.randn(1, 2, 8, 16)
     reset_launch_counts()
     p_fa_ops.flash_attention(x, x, x)
@@ -158,8 +160,11 @@ def test_flash_attention_routes_by_device():
     with pytest.raises(ValueError):
         p_fa_kernel.flash_attention_kernel(x, x, x)
     meta = x.to("meta")
+    out = p_fa_ops.flash_attention(meta, meta, meta)
+    assert out.device.type == "meta" and out.shape == x.shape
+    assert launch_counts().get("flash_attention", 0) == 0
     with pytest.raises(ValueError):
-        p_fa_ops.flash_attention(meta, meta, meta)
+        p_fa_ops._forward(meta, meta, meta, True)
 
 
 # ---------------------------------------------------------------------------
