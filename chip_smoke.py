@@ -58,7 +58,12 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   the kernels one call launched (traced); K5 also at each family's
   attention shapes, with SDPA's time beside it (and pixtral's in
   float32, on the SIMT variant), and the registers and shared memory of
-  its tensor-core variant at each head dim it is built for.
+  its tensor-core variant at each head dim it is built for; K5's
+  backward (its own row) at the train shape, in bf16 and float32, and
+  at each family's shape: one launch of its variant, two calls
+  bit-equal, against the float32 pullback (bf16: each gradient's rms
+  distance at most 1.25x SDPA backward's; float32: 1e-4 relative rms),
+  timed beside the plain version and SDPA's backward.
 * ``search``: a profile trained at the full grid (the 14 Level-2
   micro-benchmarks on the host, ``repro_torch.core.training.
   train_profile``, every fit on the card), every step of every fit
@@ -97,8 +102,10 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   against the plain attention path (float32 compute: loss and grad_norm
   within 1e-4 relative; bf16: the gradient no further, by rms, from the
   float32 plain gradient than 1.25x the bf16 plain path's), and one step
-  counted and traced (K5 56 times, forward and remat recompute, every
-  launch its tensor-core variant).  Records the step's host seconds
+  counted and traced (K5 56 times, forward and remat recompute, and its
+  backward 28 times, every launch its tensor-core variant; the trace
+  holds the backward's three kernels a launch).  Records the step's
+  host seconds
   (median of steps 2-8), tokens/s, device ms, launches, K5's share, the
   card's busy share, the step's share of the bf16 peak and peak memory.
 * ``distcalc`` (after train, from the run's own measurements):
@@ -109,22 +116,22 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   the dominant one, the measured seconds and their ratio on a line each;
   then the train cell's what-if, ``complete_strategy``'s remat-off
   strategy run on the card for WHATIF_STEPS steps (no checkpoints): its
-  step seconds, peak memory, K5's launches (28 a step, all ``wgmma``) and
+  step seconds, peak memory, K5's launches (28 a step and 28 backward,
+  all ``wgmma``) and
   whether the card orders the two strategies as predicted.  Checks: every
   prediction finite and positive with ``step_seconds`` its largest term,
   the chosen strategy valid and fitting, ``fits_memory`` false for the
-  three configs one card cannot hold and true for the six it runs.  The
-  kernels phase also times the attention backward (the plain pullback
-  the port runs, and one SDPA backward) at the lm shape.
+  three configs one card cannot hold and true for the six it runs.
 * ``dryrun`` (after distcalc): ``repro_torch.launch.dryrun``'s per-chip
   counter on the card.  Every cell the run measured counted on one
   card's fake CUDA tensors at the shapes and with the flash attention it
-  ran (FLOPs, bytes, collective bytes; K5 by its op's flop formula, the
-  train step's remat recompute and float32 attention backward included)
+  ran (FLOPs, bytes, collective bytes; K5 and its backward by their ops'
+  flop formulas, the train step's remat recompute included)
   beside distcalc's predicted FLOPs and terms on ``H100_SXM``, the H100
   roofline of the count and the measured seconds; one real qwen2-1.5b
   train step counted under the same counter, its FLOPs the fake count's
-  exactly and K5 56 launches; then phi3.5-moe-42b, qwen1.5-32b and
+  exactly, K5 56 launches and its backward 28; then phi3.5-moe-42b,
+  qwen1.5-32b and
   llama3-405b at ``train_4k`` on the (16, 16) fake mesh with probes, and
   phi3.5-moe-42b on (2, 16, 16), each through ``python -m
   repro_torch.launch.dryrun`` in a subprocess on meta tensors, all at
@@ -139,7 +146,8 @@ and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, when CUDA is absent or any check fails.
 ``--only whatif`` runs the whatif phase alone, ``--only stores`` times
 K1 and the bloom_probe op at the kvstore shapes, ``--only k5`` times K5
-beside SDPA at the lm phase's shape and each family's, ``--only train``
+and its backward beside SDPA at the lm and train shapes and each
+family's, ``--only train``
 runs the train phase alone and ``--only dryrun`` the dryrun phase (no
 measured times); they print no result line.
 """
@@ -1183,10 +1191,13 @@ def _profile(fn, steps: int, watch: str = "", spans=()) -> dict:
         each = [e.time_range.elapsed_us() / 1e3 for e in hits]
         out[f"{watch}_launches_per_step"] = len(each) / steps
         out[f"{watch}_kernels"] = {}
-        for e in hits:
+        out[f"{watch}_ms_by_kernel"] = {}
+        for e, ms in zip(hits, each):
             name = e.name[:80]
             out[f"{watch}_kernels"][name] = \
                 out[f"{watch}_kernels"].get(name, 0) + 1
+            out[f"{watch}_ms_by_kernel"][name] = \
+                out[f"{watch}_ms_by_kernel"].get(name, 0.0) + ms / steps
         out[f"{watch}_ms_per_step"] = sum(each) / steps
         out[f"{watch}_ms_each"] = each
     return out
@@ -1979,10 +1990,19 @@ def _first_step(cfg, state, batch, checks: Checks) -> dict:
     return out
 
 
+def _bwd_launches_ok(counted: dict, want: int) -> bool:
+    """K5's backward launched ``want`` times, every one on wgmma."""
+    return (counted.get("flash_attention_bwd") == want and
+            counted.get("flash_attention_bwd_wgmma") == want and
+            counted.get("flash_attention_bwd_simt", 0) == 0)
+
+
 def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
     """One whole train step, counted and traced: K5's launches by the
-    counters and by the kernels the trace holds (every one the
-    tensor-core variant), the step's device time and K5's share."""
+    counters and by the kernels the trace holds (every forward the
+    tensor-core variant, 2 a layer with the remat recompute; every
+    backward the tensor-core variant, one a layer, its three kernels),
+    the step's device time and the forward's and backward's shares."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build
@@ -1993,27 +2013,48 @@ def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
     step(state, batch)                        # counted, and warms the trace
     torch.cuda.synchronize()
     counted = _k5_moved({}, launch_counts())
-    want = 2 * cfg.n_layers
+    want, layers = 2 * cfg.n_layers, cfg.n_layers
     checks.expect(counted.get("flash_attention") == want and
                   counted.get("flash_attention_wgmma") == want and
-                  counted.get("flash_attention_simt") == 0,
-                  f"train step: K5 launches {counted}, expected {want}, "
-                  f"all wgmma")
+                  counted.get("flash_attention_simt") == 0 and
+                  _bwd_launches_ok(counted, layers),
+                  f"train step: K5 launches {counted}, expected {want} "
+                  f"forward and {layers} backward, all wgmma")
     prof = _profile(lambda: step(state, batch), 1, watch="flash")
     each = prof.pop("flash_ms_each")
     traced = prof["flash_launches_per_step"]
-    # the trace's names: tc::flash_wgmma_kernel<D>, simt::flash_kernel
+    # the trace's names: tc::flash_wgmma_kernel<D> (forward);
+    # simt::flash_bwd_prep_kernel, tc::flash_bwd_dkv_kernel<D> and
+    # tc::flash_bwd_dq_kernel<D> (backward); simt::flash_kernel and
+    # simt::flash_bwd_kernel, the SIMT variants
     names = prof.pop("flash_kernels")
-    wgmma = sum(n for name, n in names.items() if "flash_wgmma" in name)
-    checks.expect(traced == want and wgmma == want,
+    by_ms = prof.pop("flash_ms_by_kernel")
+
+    def count(part):
+        return sum(n for name, n in names.items() if part in name)
+
+    def ms(part):
+        return sum(t for name, t in by_ms.items() if part in name)
+
+    wgmma = count("flash_wgmma")
+    bwd = {part: count(f"flash_bwd_{part}_kernel")
+           for part in ("prep", "dkv", "dq")}
+    checks.expect(traced == want + 3 * layers and wgmma == want and
+                  all(n == layers for n in bwd.values()),
                   f"train step: the trace holds {traced} K5 kernels, "
-                  f"{wgmma} of them flash_wgmma, expected {want}: {names}")
+                  f"{wgmma} of them flash_wgmma, backward {bwd}, expected "
+                  f"{want} and {layers} of each: {names}")
+    device = prof["device_ms_per_step"]
     return {"k5_counted": counted, "k5_traced": traced,
-            "k5_traced_wgmma": wgmma, "k5_traced_names": names,
+            "k5_traced_wgmma": wgmma, "k5_traced_bwd": bwd,
+            "k5_traced_names": names, "k5_traced_ms_by_kernel": by_ms,
             "k5_traced_ms_mean": sum(each) / max(len(each), 1),
             "k5_ms_per_step": prof["flash_ms_per_step"],
-            "k5_share_of_device": (prof["flash_ms_per_step"] /
-                                   prof["device_ms_per_step"]),
+            "k5_share_of_device": prof["flash_ms_per_step"] / device,
+            "k5_fwd_ms_per_step": ms("flash_wgmma"),
+            "k5_bwd_ms_per_step": ms("flash_bwd"),
+            "k5_bwd_share_of_device": ms("flash_bwd") / device,
+            "k5_bwd_ms_each": ms("flash_bwd") / layers,
             "profile_step": prof}
 
 
@@ -2111,7 +2152,10 @@ def phase_train(seed: int) -> dict:
                     (step_s * 1e3)})
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_wgmma": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_simt": 0}
+            "flash_attention_simt": 0,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd_wgmma": cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd_simt": 0}
     checks.expect(out["run_launches"] == want,
                   f"train run: K5 launches {out['run_launches']}, "
                   f"expected {want}")
@@ -2261,9 +2305,10 @@ def _remat_off_steps(seed: int, checks: Checks) -> dict:
         k5 = out["k5_launches"]
         checks.expect(k5.get("flash_attention") == want and
                       k5.get("flash_attention_wgmma") == want and
-                      k5.get("flash_attention_simt") == 0,
-                      f"remat-off steps: K5 launches {k5}, expected {want}, "
-                      f"all wgmma")
+                      k5.get("flash_attention_simt") == 0 and
+                      _bwd_launches_ok(k5, want),
+                      f"remat-off steps: K5 launches {k5}, expected {want} "
+                      f"forward and {want} backward, all wgmma")
         checks.expect(all(math.isfinite(x) for x in out["losses"]),
                       f"remat-off steps: losses {out['losses']}")
     return out
@@ -2545,7 +2590,8 @@ def _fake_counts(report, checks: Checks, device: str = DEVICE) -> list:
 def _real_step_count(seed: int, fake_flops: float, checks: Checks) -> dict:
     """One real qwen2-1.5b train step (4 x 2,048, bf16, flash, remat) on
     the card under the dry run's counter: its FLOPs equal the fake count
-    exactly, K5's 56 launches counted through its flop formula."""
+    exactly, K5's 56 launches and its backward's 28 counted through their
+    ops' flop formulas."""
     import dataclasses
     import torch
     from repro_torch.configs import qwen2_1_5b
@@ -2584,9 +2630,11 @@ def _real_step_count(seed: int, fake_flops: float, checks: Checks) -> dict:
                   f"dryrun: the real train step counts {costs['flops']!r} "
                   f"FLOPs, the fake count {fake_flops!r}")
     checks.expect(k5.get("flash_attention") == want and
-                  k5.get("flash_attention_wgmma") == want,
+                  k5.get("flash_attention_wgmma") == want and
+                  _bwd_launches_ok(k5, cfg.n_layers),
                   f"dryrun: the counted real step launched K5 {k5}, "
-                  f"expected {want} on wgmma")
+                  f"expected {want} forward and {cfg.n_layers} backward on "
+                  f"wgmma")
     checks.expect(math.isfinite(loss), f"dryrun: real step loss {loss}")
     log(f"dryrun real train step on the card: {costs['flops']:.6e} FLOPs "
         f"counted, the fake count {fake_flops:.6e} "
@@ -3203,7 +3251,7 @@ def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
         rtol, atol = (2.0 ** -8, 1e-4) if dtype == torch.bfloat16 else \
             (1e-5, 1e-5)
         before = launch_counts()
-        got = kernel.flash_attention_kernel(q, k, v, causal).float()
+        got = kernel.flash_attention_kernel(q, k, v, causal)[0].float()
         moved = _k5_moved(before, launch_counts())
         assert moved.get("flash_attention") == 1 and \
             moved.get(f"flash_attention_{kind}") == 1, (name, moved)
@@ -3243,51 +3291,147 @@ def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
     return rows
 
 
-def k5_backward(gen) -> dict:
-    """The attention backward at the lm and train shape ([4, 12/2, 2048,
-    128] bf16, causal, [B, S, H, D] strides): the port's, which is the
-    plain ``attention_ref`` pullback (``FlashAttention.backward``, as the
-    reference's ``_bwd``), against one SDPA backward (``enable_gqa``) on
-    the same inputs and output gradient; each timed alone on a retained
-    graph.  Bound: the backward's five products (S, dP, dV, dQ, dK; the
-    forward has two) over the pairs the causal mask keeps, at the bf16
-    tensor-core peak."""
+#: K5's backward: the train step's shape (bf16, and float32 as the first
+#: step's float32 check runs it, on the SIMT variant), then every family's
+#: K5 shape; the first row is the kernels line's
+K5_BWD_SHAPES = [
+    ("qwen2-1.5b train", TRAIN_BATCH, 12, 2, TRAIN_SEQ, TRAIN_SEQ, 128, True,
+     "bfloat16"),
+    ("qwen2-1.5b train float32", TRAIN_BATCH, 12, 2, TRAIN_SEQ, TRAIN_SEQ,
+     128, True, "float32"),
+] + K5_FAMILY_SHAPES
+#: the bf16 backward's witness: each gradient's rms distance from the
+#: float32 pullback at most this times SDPA backward's (both round P and dS
+#: to bf16 once); float32 within K5_BWD_F32_RMS relative rms
+K5_BWD_BF16_RATIO = 1.25
+K5_BWD_F32_RMS = 1e-4
+
+
+def _rel_rms(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(((got - want) ** 2).mean().sqrt() /
+                 (want ** 2).mean().sqrt())
+
+
+def k5_backward(gen, shapes=K5_BWD_SHAPES) -> list:
+    """K5's backward (``flash_attention_bwd_kernel``) at each of ``shapes``
+    on the forward kernel's ``out`` and ``lse`` and a random output
+    gradient, all in the model's [B, S, H, D] strides: one launch of its
+    variant, two calls bit-equal, and against the float32 pullback
+    (``attention_bwd_ref`` on the inputs in float32 with the float32
+    ``attention_ref`` output and ``attention_lse_ref``): bf16 by the
+    witness against SDPA backward (``enable_gqa``) on the same inputs and
+    gradient, float32 within K5_BWD_F32_RMS relative rms.  Timed beside
+    the plain version on the card (``attention_bwd_ref`` on the same
+    tensors) and SDPA's backward on a retained graph.  Bound: the
+    function's five products, 10 B H D x the kept pairs, at the peak of
+    the inputs' type (bf16 tensor cores or float32), or the bytes (q, k,
+    v, out, dout and lse read once, dq, dk and dv written once)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
-    b, h, kh, sq, d = LM_BATCH, 12, 2, LM_PROMPT, 128
-    q, k, v = (x.detach().requires_grad_(True) for x in
-               _k5_inputs(gen, b, h, kh, sq, sq, d, torch.bfloat16))
-    grad = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
-    out = ops.flash_attention(q, k, v, True)
-    plain_ms = timed_ms(lambda: torch.autograd.grad(
-        out, (q, k, v), grad, retain_graph=True), reps=3, warmup=1)
-    del out
-    qc, kc, vc = (x.detach().contiguous().requires_grad_(True)
-                  for x in (q, k, v))
-    ref = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
-                                         enable_gqa=True)
-    gc_ = grad.contiguous()
-    library_ms = timed_ms(lambda: torch.autograd.grad(
-        ref, (qc, kc, vc), gc_, retain_graph=True), reps=10)
-    got = torch.autograd.grad(ops.flash_attention(q, k, v, True),
-                              (q, k, v), grad)
-    want = torch.autograd.grad(ref, (qc, kc, vc), gc_)
-    rms = max(float(((a.float() - w.float()) ** 2).mean().sqrt() /
-                    (w.float() ** 2).mean().sqrt())
-              for a, w in zip(got, want))
-    n_ops = 10 * b * h * d * _causal_pairs(sq, sq)
-    n_bytes = 2 * (3 * q.numel() + 3 * k.numel() + 3 * v.numel())
-    t_ops = n_ops / BF16_TC_OPS_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return {"shape": f"[{b},{h},{sq},{d}] kv_heads={kh} bf16 causal",
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "scaled_dot_product_attention backward "
-                       "(is_causal=True, enable_gqa=True)",
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": n_ops, "bytes": n_bytes,
-            "grad_rel_rms_vs_library": rms}
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
+                                                         attention_ref)
+    rows = []
+    for name, b, h, kh, sq, skv, d, causal, dtype in shapes:
+        dtype = getattr(torch, dtype)
+        q, k, v = _k5_inputs(gen, b, h, kh, sq, skv, d, dtype)
+        g = torch.randn((b, sq, h, d), generator=gen,
+                        device=DEVICE).to(dtype).transpose(1, 2)
+        kind = kernel.variant(dtype, d)
+        out, lse = kernel.flash_attention_kernel(q, k, v, causal)
+        before = launch_counts()
+        got = kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, causal)
+        moved = {n: c for n, c in
+                 _k5_moved(before, launch_counts()).items() if c}
+        assert moved == {"flash_attention_bwd": 1,
+                         f"flash_attention_bwd_{kind}": 1}, (name, moved)
+        again = kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g,
+                                                  causal)
+        bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        f32 = [x.float() for x in (q, k, v)]
+        truth = attention_bwd_ref(
+            *f32, attention_ref(*f32, causal=causal),
+            attention_lse_ref(*f32, causal=causal), g.float(), causal)
+        ours = [_rel_rms(x, y) for x, y in zip(got, truth)]
+        max_err = max(float((x.float() - y).abs().max())
+                      for x, y in zip(got, truth))
+        del got
+        lib = [x.detach().contiguous().requires_grad_(True)
+               for x in (q, k, v)]
+        gc_ = g.contiguous()
+        ref = F.scaled_dot_product_attention(*lib, is_causal=causal,
+                                             enable_gqa=True)
+        sdpa = [_rel_rms(x, y) for x, y in zip(
+            torch.autograd.grad(ref, lib, gc_, retain_graph=True), truth)]
+        library_ms = timed_ms(lambda: torch.autograd.grad(
+            ref, lib, gc_, retain_graph=True), reps=10)
+        del truth
+        _free()
+        if dtype == torch.bfloat16:
+            ok = all(x <= K5_BWD_BF16_RATIO * y for x, y in zip(ours, sdpa))
+        else:
+            ok = all(x <= K5_BWD_F32_RMS for x in ours)
+        assert ok and bit_equal, \
+            f"K5 backward ({kind}) at {name}: rel rms {ours} (SDPA " \
+            f"{sdpa}), two calls bit-equal {bit_equal}"
+        ms = timed_ms(lambda: kernel.flash_attention_bwd_kernel(
+            q, k, v, out, lse, g, causal), reps=10)
+        plain_ms = timed_ms(lambda: attention_bwd_ref(
+            q, k, v, out, lse, g, causal), reps=3, warmup=1)
+        pairs = _causal_pairs(sq, skv) if causal else sq * skv
+        n_ops = 10 * b * h * d * pairs
+        n_bytes = q.element_size() * 4 * (q.numel() + k.numel()) + \
+            lse.numel() * 4
+        peak = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAKS[peak] * 1e3
+        rows.append({
+            "shape": name, "b": b, "heads": f"{h}/{kh}", "sq": sq,
+            "skv": skv, "d": d, "causal": causal,
+            "dtype": str(dtype).removeprefix("torch."), "variant": kind,
+            "max_abs_err": max_err, "grad_rel_rms": ours,
+            "sdpa_grad_rel_rms": sdpa, "bit_equal": bit_equal,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ops_peak": peak, "ops": n_ops, "bytes": n_bytes,
+            "tflops": n_ops / (ms * 1e-3) / 1e12})
+        log(f"K5 backward {name}: {json.dumps(rows[-1])}")
+        del q, k, v, g, out, lse, lib, ref
+        _free()
+    return rows
+
+
+def kernel_k5_backward(rows) -> dict:
+    """The kernels line's row of K5's backward, from :func:`k5_backward`'s
+    rows (the train shape's first); its launches are the train run's,
+    filled in after the train phase."""
+    from repro_torch.kernels.flash_attention import kernel
+    main = rows[0]
+    row = _row("K5 flash_attention backward", "cuda",
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/ops.py:66 (_bwd, the "
+               "custom VJP's backward; XLA's pullback of attention_ref on "
+               "the TPU)", 0, main["max_abs_err"], main["ms"],
+               main["plain_ms"], main["bytes"], main["ops"],
+               main["ops_peak"], main["library_ms"],
+               {"shape": f"[{main['b']},12,{main['sq']},128] kv_heads=2 "
+                         f"bf16 causal, [B,S,H,D] strides",
+                "variant": main["variant"],
+                "library": "scaled_dot_product_attention backward "
+                           "(is_causal=True, enable_gqa=True)",
+                "tflops": main["tflops"],
+                "grad_rel_rms": main["grad_rel_rms"],
+                "sdpa_grad_rel_rms": main["sdpa_grad_rel_rms"],
+                "wgmma_info": {str(dd): kernel.bwd_wgmma_info(dd)
+                               for dd in kernel.WGMMA_HEAD_DIMS},
+                "shapes": rows})
+    log(f"K5 backward wgmma_info: {json.dumps(row['wgmma_info'])}")
+    return row
 
 
 def kernel_k5(seed, launches) -> dict:
@@ -3318,7 +3462,7 @@ def kernel_k5(seed, launches) -> dict:
     for (q, k, v), causal, rtol, atol in cases:
         kind = kernel.variant(q.dtype, q.shape[-1])
         before = launch_counts()
-        got = kernel.flash_attention_kernel(q, k, v, causal).float()
+        got = kernel.flash_attention_kernel(q, k, v, causal)[0].float()
         after = launch_counts()
         want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
         err = (got - want).abs()
@@ -3327,13 +3471,15 @@ def kernel_k5(seed, launches) -> dict:
             f"K5 ({kind}) vs plain {tuple(q.shape)} causal={causal}: max " \
             f"abs {errs[-1]:.3e}"
         moved = {n: after[n] - before.get(n, 0) for n in after
-                 if n.startswith("flash_attention")}
+                 if n.startswith("flash_attention")
+                 and not n.startswith("flash_attention_bwd")}
         assert moved == {"flash_attention": 1,
                          f"flash_attention_{kind}": 1,
                          **{f"flash_attention_{o}": 0 for o in
                             kernel.VARIANT_LAUNCHES if o != kind}}, \
             f"K5 {tuple(q.shape)} {q.dtype}: counters moved {moved}"
-    # the gradient: forward on K5, backward through attention_ref
+    # the gradient: forward and backward on K5 (the SIMT variants),
+    # against autograd of attention_ref
     xs = _k5_inputs(gen, 2, 4, 2, 100, 100, 32, torch.float32)
     w = torch.randn(xs[0].shape, generator=gen, device=DEVICE)
     ga = [x.detach().clone().requires_grad_(True) for x in xs]
@@ -3356,8 +3502,6 @@ def kernel_k5(seed, launches) -> dict:
     qf, kf, vf = (x.float() for x in main)
     simt_ms = timed_ms(lambda: kernel.flash_attention_kernel(qf, kf, vf,
                                                              True), reps=5)
-    backward = k5_backward(gen)
-    log(f"K5 backward: {json.dumps(backward)}")
     # the tensor-core variant's registers a thread (at launch) and shared
     # memory a block, at each head dim it is built for
     wgmma_info = {str(dd): kernel.wgmma_info(dd)
@@ -3384,7 +3528,6 @@ def kernel_k5(seed, launches) -> dict:
                  "tensor_tflops_done": 1.5 * n_ops / (ms * 1e-3) / 1e12,
                  "wgmma_info": wgmma_info,
                  "simt_float32_ms": simt_ms,
-                 "backward": backward,
                  "family_shapes": k5_family_cases(gen),
                  "simt_float32_shape": f"[{b},{h},{sq},{d}] float32 causal",
                  "library": "torch.nn.functional.scaled_dot_product_attention"
@@ -3394,13 +3537,14 @@ def kernel_k5(seed, launches) -> dict:
 def only_k5(seed: int) -> list:
     """``--only k5``: K5 against its plain version, timed beside SDPA, at
     the lm phase's shape and each family's (:func:`k5_family_cases`), and
-    the attention backward beside SDPA's (:func:`k5_backward`)."""
+    its backward beside SDPA's at the train shape and each family's
+    (:func:`k5_backward`)."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     lm = ("lm prefill", LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128, True,
           "bfloat16")
     return k5_family_cases(gen, [lm] + K5_FAMILY_SHAPES) + [
-        dict(k5_backward(gen), case="lm backward")]
+        dict(row, case="backward") for row in k5_backward(gen)]
 
 
 def only_stores(seed: int) -> dict:
@@ -3571,6 +3715,8 @@ def main(argv=None) -> int:
         kernel_k3(data, rng, report["kvstore"]["launches"]),
         kernel_k4(data, rng, report["kvstore"]["launches"]),
         kernel_k5(args.seed, report["lm"]["launches"]),
+        kernel_k5_backward(k5_backward(
+            torch.Generator(device=DEVICE).manual_seed(args.seed + 6))),
     ]
     report["kernels_phase_s"] = time.perf_counter() - t0
 
@@ -3632,7 +3778,9 @@ def main(argv=None) -> int:
         f"{tr['device_ms_per_step']:.1f} ms a step in "
         f"{tr['profile_step']['launches_per_step']:.0f} launches (busy "
         f"{tr['device_busy_share']:.3f}), K5 {tr['k5_share_of_device']:.4f} "
-        f"of it in {tr['k5_traced']:.0f} launches, peak "
+        f"of it in {tr['k5_traced']:.0f} kernels (backward "
+        f"{tr['k5_bwd_ms_per_step']:.2f} ms, "
+        f"{tr['k5_bwd_share_of_device']:.4f}), peak "
         f"{tr['peak_gb']:.1f} GB, phase {report['train_phase_s']:.1f} s")
 
     t0 = time.perf_counter()
@@ -3665,10 +3813,31 @@ def main(argv=None) -> int:
     kernels[5]["train_path"] = {
         "shape": f"[{TRAIN_BATCH},{12},{TRAIN_SEQ},128] kv_heads=2 bf16 "
                  f"causal (the lm row's shape)",
-        "launches_per_step": tr["k5_traced"],
+        "launches_per_step": tr["k5_counted"].get("flash_attention"),
+        "traced_kernels_per_step": tr["k5_traced"],
         "traced_ms_mean": tr["k5_traced_ms_mean"],
-        "ms_per_step": tr["k5_ms_per_step"],
+        "ms_per_step": tr["k5_fwd_ms_per_step"],
+        "forward_and_backward_ms_per_step": tr["k5_ms_per_step"],
         "share_of_step_device_time": tr["k5_share_of_device"]}
+    # K5's backward: the main path is the train run, 28 launches a step
+    kernels[6]["launches"] = tr["run_launches"].get("flash_attention_bwd", 0)
+    kernels[6]["launches_by_path"] = {
+        "qwen2-1.5b train step": tr["k5_counted"].get("flash_attention_bwd"),
+        f"qwen2-1.5b train, {TRAIN_STEPS} steps":
+            tr["run_launches"].get("flash_attention_bwd"),
+        f"qwen2-1.5b train, resumed at step {TRAIN_CKPT_EVERY}":
+            tr["resume_launches"].get("flash_attention_bwd"),
+        f"qwen2-1.5b remat-off what-if, {WHATIF_STEPS} steps":
+            (what_if.get("k5_launches") or {}).get("flash_attention_bwd"),
+        "qwen2-1.5b train step counted by the dry run's counter":
+            report["dryrun"]["real_step"]["k5_launches"].get(
+                "flash_attention_bwd")}
+    kernels[6]["train_path"] = {
+        "launches_per_step": tr["k5_counted"].get("flash_attention_bwd"),
+        "traced_kernels_per_step": tr["k5_traced_bwd"],
+        "ms_per_step": tr["k5_bwd_ms_per_step"],
+        "ms_each": tr["k5_bwd_ms_each"],
+        "share_of_step_device_time": tr["k5_bwd_share_of_device"]}
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

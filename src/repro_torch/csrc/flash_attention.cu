@@ -101,6 +101,59 @@
 //   * A barrier wait that never completes would hang the card: every wait
 //     traps after ~10 s instead, so a fault is an error.
 //
+// Both variants also write each row's log-sum-exp, lse = ln sum_j exp(S_ij
+// scale) in float32 [B, H, Sq] (-inf for a dead row), which the backward
+// takes.
+//
+// === The backward ========================================================
+// Replaces the reference op's backward, _bwd (src/repro/kernels/
+// flash_attention/ops.py:66), which on the TPU is XLA's fused pullback of
+// attention_ref.  It computes the same gradients, in the FlashAttention-2
+// equations from the saved out and lse: delta_i = sum_d dO_id O_id, P =
+// exp(S scale - lse), dV = P^T dO, dP = dO V^T, dS = P o (dP - delta),
+// dQ = scale dS K, dK = scale dS^T Q; GQA sums dK and dV over each KV
+// head's group; masking, ragged lengths and strides as the forward.  What
+// bounds it on the H100: operations, the function's five products, 10 B H
+// D x the kept pairs, at the bf16 tensor-core peak.
+//
+// Three launches a call, in both variants: a preprocess (delta, and lse in
+// base-2 units, into a [B * H, Sq padded to 64] float32 scratch; rows past
+// Sq get lse2 = +inf, so a zero-filled q row has P = 0), a dK/dV pass (a
+// block owns a KV tile of one KV head and walks its group's q tiles, under
+// causal only those at or below the diagonal, accumulating dK and dV in
+// registers) and a dQ pass (a block owns a q tile and walks the KV tiles up
+// to the diagonal).  Each pass recomputes S and dP, so a kept pair costs 7
+// products against the function's 5: the kernel can reach at best 1 / 1.4
+// of the bound above.  What the recompute buys is determinism: every sum
+// of dQ, dK and dV is taken inside one block in a fixed order, with no
+// atomics, so two calls give bit-equal gradients (the training run's resume
+// check holds the losses bit for bit).
+//
+// --- tc backward: bf16, D in {64, 128, 160}, on wgmma with TMA-fed tiles --
+//   * 256 threads: two consumer warpgroups, no producer warpgroup (thread 0
+//     issues the loads), so ptxas may give a thread 255 registers.
+//   * dK/dV pass: S^T = K Q^T and dP^T = V dO^T (wgmma.m64n64, A = the K /
+//     V rows, B = a 64-row Q / dO tile, both K-major from shared memory),
+//     so that P^T and dS^T come out as register fragments that serve as A
+//     of dV += P^T dO and dK += dS^T Q (B = the dO / Q tile, MN-major, N =
+//     D padded to whole boxes): FlashAttention-3's arrangement.  A block
+//     owns 128 keys (64 a warpgroup) at D 64 and 128; at D 160 the two
+//     accumulators (96 floats each) do not fit one thread, so a block owns
+//     64 keys, warpgroup 0 accumulating dV and warpgroup 1 dK (both form
+//     S^T: 8 products a kept pair there, at N 192 for 160).
+//   * dQ pass: S = Q K^T and dP = dO V^T, dS in registers as A of dQ += dS
+//     K (B = the K tile, MN-major), like the forward's P V.  A block owns
+//     128 q rows (64 a warpgroup), heaviest first.
+//   * P and dS are rounded to bf16 once for their products, as
+//     FlashAttention-2/3 and SDPA's backward do (chip_smoke.py holds the
+//     gradients' rms distance from the float32 pullback to 1.25x SDPA's).
+//   * Streamed tiles flow through a two-stage mbarrier ring; the per-row
+//     lse2 and delta of a q tile ride the same barrier as a 1-D bulk copy.
+//     Gradients are written in bf16 through dq's, dk's and dv's strides.
+// --- simt backward: float32, or bf16 at any other D ----------------------
+//   The same three passes with scalar float32 FMAs on 32-row tiles (see
+//   simt::flash_bwd_kernel), so the float32 path holds 1e-5.
+//
 // Plain C interface, loaded with ctypes: each launcher returns
 // cudaGetLastError() after its launch (or the error that refused it).
 #include <cstdint>
@@ -145,9 +198,10 @@ struct Strides {           // element strides of a [B, H, S, D] view
 template <typename T, int JMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int heads,
-             int group, int sq, int skv, int d, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale, int causal) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int heads, int group, int sq, int skv,
+             int d, Strides qs, Strides ks, Strides vs, Strides os,
+             float scale, int causal) {
     extern __shared__ float smem[];
     const int qst = d + 4;                       // Q tile row stride
     float* q_tile = smem;                        // [kBQ][qst]
@@ -271,6 +325,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
         const int row = q_lo + ty * 4 + i;
         if (row >= sq) continue;
+        // the row's log-sum-exp (m is in scaled units): -inf for a dead row
+        if (tx == 0)
+            lse[static_cast<int64_t>(bh) * sq + row] =
+                m[i] <= kNegInf / 2 ? -__int_as_float(0x7f800000)
+                                    : m[i] + logf(l[i]);
         const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int j = 0; j < JMAX; ++j) {
@@ -281,9 +340,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int JMAX>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int heads, int kv_heads, int sq, int skv, int d,
-           const int64_t* st, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int heads, int kv_heads, int sq, int skv,
+           int d, const int64_t* st, float scale, int causal,
+           cudaStream_t stream) {
     const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
         vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
     const size_t smem =
@@ -296,9 +356,275 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), heads,
+        static_cast<const T*>(v), static_cast<T*>(out), lse, heads,
         heads / kv_heads, sq, skv, d, qs, ks, vs, os, scale, causal);
     return static_cast<int>(cudaGetLastError());
+}
+
+// --- the backward ---------------------------------------------------------
+// Preprocess, both variants: one warp a row of the [B * H, sq_pad] scratch
+// (sq_pad = Sq rounded up to 64, so that every 64-row tile of it is whole
+// and 256-byte aligned): delta = sum_d dO o O in float32, and lse2 = lse
+// log2(e), the base-2 log-sum-exp the backward's exp2 takes.  Rows >= Sq,
+// and a dead row's -inf, get lse2 = +inf (P = 0) and delta = 0.
+constexpr int kPad = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep_kernel(const T* __restrict__ out,
+                      const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ delta, float* __restrict__ lse2,
+                      int heads, int sq, int sq_pad, int d, int64_t rows,
+                      Strides os, Strides dos) {
+    const int64_t gid = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
+                        threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (gid >= rows) return;
+    const int bh = static_cast<int>(gid / sq_pad);
+    const int row = static_cast<int>(gid % sq_pad);
+    const int b = bh / heads, h = bh % heads;
+    const float inf = __int_as_float(0x7f800000);
+    if (row >= sq) {
+        if (lane == 0) {
+            delta[gid] = 0.f;
+            lse2[gid] = inf;
+        }
+        return;
+    }
+    const T* o = out + b * os.b + h * os.h + row * os.s;
+    const T* g = dout + b * dos.b + h * dos.h + row * dos.s;
+    float sum = 0.f;
+    for (int c = lane; c < d; c += 32) sum += to_float(o[c]) * to_float(g[c]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+        const float l = lse[static_cast<int64_t>(bh) * sq + row];
+        delta[gid] = sum;
+        lse2[gid] = l == -inf ? inf : l * 1.4426950408889634f;
+    }
+}
+
+template <typename T>
+int prep_launch(const void* out, const void* dout, const float* lse,
+                float* delta, float* lse2, int batch, int heads, int sq,
+                int d, Strides os, Strides dos, cudaStream_t stream) {
+    const int sq_pad = (sq + kPad - 1) / kPad * kPad;
+    const int64_t rows = static_cast<int64_t>(batch) * heads * sq_pad;
+    const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+    flash_bwd_prep_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout), lse, delta,
+        lse2, heads, sq, sq_pad, d, rows, os, dos);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The SIMT backward: two kernels of one template after the preprocess.
+// kKV: a block owns kBB keys of one KV head (K and V in shared memory) and
+// walks the q tiles of its group's heads (under causal, from the diagonal
+// on), accumulating dV = P^T dO and dK = scale dS^T Q in registers.  !kKV:
+// a block owns kBB q rows of one head (Q and dO) and walks the KV tiles up
+// to the diagonal, accumulating dQ = scale dS K.  Each step forms the
+// owned x streamed tiles of the scores S and of dP (dO V^T) in registers,
+// P = exp2(S scale log2e - lse2) and dS = P o (dP - delta) into shared
+// memory, then the products.  Each thread owns 2 rows x (2 score columns,
+// D / 16 output columns); every product is a scalar float32 FMA; every sum
+// runs in a fixed order (no atomics), so two calls are bit-equal.
+constexpr int kBB = 32;          // rows of an owned or streamed tile
+constexpr int kBS = kBB + 1;     // row stride of the P and dS tiles
+
+template <typename T, int JMAX, bool kKV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ lse2, T* __restrict__ dq,
+                 T* __restrict__ dk, T* __restrict__ dv, int heads,
+                 int kv_heads, int sq, int sq_pad, int skv, int d,
+                 Strides qs, Strides ks, Strides vs, Strides dos,
+                 Strides dqs, Strides dks, Strides dvs, float scale,
+                 float scale_log2, int causal) {
+    extern __shared__ float smem[];
+    const int ds = d + 1;                // row stride of the D-wide tiles
+    float* a1 = smem;                    // owned: K (kKV) or Q, [kBB][ds]
+    float* a2 = a1 + kBB * ds;           // owned: V (kKV) or dO
+    float* b1 = a2 + kBB * ds;           // streamed: Q (kKV) or K
+    float* b2 = b1 + kBB * ds;           // streamed: dO (kKV) or V
+    float* p_tile = b2 + kBB * ds;       // P, [kBB owned][kBS]
+    float* ds_tile = p_tile + kBB * kBS; // dS
+
+    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+    const int group = heads / kv_heads;
+    const int own_lo = blockIdx.x * kBB;
+    const int b = blockIdx.y / (kKV ? kv_heads : heads);
+    const int h_own = kKV ? 0 : blockIdx.y % heads;
+    const int kvh = kKV ? blockIdx.y % kv_heads : h_own / group;
+    const T* kb = k + b * ks.b + kvh * ks.h;
+    const T* vb = v + b * vs.b + kvh * vs.h;
+
+    auto load = [&](float* dst, const T* src, int64_t rs, int lo, int n) {
+        for (int e = tid; e < kBB * d; e += kThreads) {
+            const int r = e / d, c = e - r * d;
+            const int row = lo + r;
+            dst[r * ds + c] = row < n ? to_float(src[row * rs + c]) : 0.f;
+        }
+    };
+    if (kKV) {
+        load(a1, kb, ks.s, own_lo, skv);
+        load(a2, vb, vs.s, own_lo, skv);
+    } else {
+        load(a1, q + b * qs.b + h_own * qs.h, qs.s, own_lo, sq);
+        load(a2, dout + b * dos.b + h_own * dos.h, dos.s, own_lo, sq);
+    }
+
+    // acc1: dK (kKV) or dQ, before the scale; acc2: dV
+    float acc1[2][JMAX], acc2[2][JMAX];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < JMAX; ++j) acc1[i][j] = acc2[i][j] = 0.f;
+
+    const int n_q = (sq + kBB - 1) / kBB, n_kv = (skv + kBB - 1) / kBB;
+    // kKV under causal: the q tiles from the one holding row own_lo (rows
+    // >= key); !kKV: the KV tiles up to the one holding the last row
+    const int first = kKV && causal ? min(own_lo / kBB, n_q) : 0;
+    const int n_stream =
+        kKV ? n_q - first
+            : (causal ? min(n_kv, (own_lo + kBB - 1) / kBB + 1) : n_kv);
+    for (int g = 0; g < (kKV ? group : 1); ++g) {
+        const int h = kKV ? kvh * group + g : h_own;
+        const int64_t stat = (static_cast<int64_t>(b) * heads + h) * sq_pad;
+        for (int t = 0; t < n_stream; ++t) {
+            const int lo = (first + t) * kBB;
+            __syncthreads();             // the last step's tiles are read
+            if (kKV) {
+                load(b1, q + b * qs.b + h * qs.h, qs.s, lo, sq);
+                load(b2, dout + b * dos.b + h * dos.h, dos.s, lo, sq);
+            } else {
+                load(b1, kb, ks.s, lo, skv);
+                load(b2, vb, vs.s, lo, skv);
+            }
+            __syncthreads();
+
+            float x[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // S
+            float y[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // dP
+            for (int c = 0; c < d; ++c) {
+                const float a10 = a1[2 * ty * ds + c];
+                const float a11 = a1[(2 * ty + 1) * ds + c];
+                const float a20 = a2[2 * ty * ds + c];
+                const float a21 = a2[(2 * ty + 1) * ds + c];
+                const float b10 = b1[2 * tx * ds + c];
+                const float b11 = b1[(2 * tx + 1) * ds + c];
+                const float b20 = b2[2 * tx * ds + c];
+                const float b21 = b2[(2 * tx + 1) * ds + c];
+                x[0][0] += a10 * b10; x[0][1] += a10 * b11;
+                x[1][0] += a11 * b10; x[1][1] += a11 * b11;
+                y[0][0] += a20 * b20; y[0][1] += a20 * b21;
+                y[1][0] += a21 * b20; y[1][1] += a21 * b21;
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const int oi = own_lo + 2 * ty + i, sj = lo + 2 * tx + j;
+                    const int row = kKV ? sj : oi, key = kKV ? oi : sj;
+                    const bool keep = row < sq && key < skv &&
+                                      (!causal || key <= row);
+                    float p = 0.f, dsv = 0.f;
+                    if (keep) {
+                        p = exp2f(x[i][j] * scale_log2 - lse2[stat + row]);
+                        dsv = p * (y[i][j] - delta[stat + row]);
+                    }
+                    p_tile[(2 * ty + i) * kBS + 2 * tx + j] = p;
+                    ds_tile[(2 * ty + i) * kBS + 2 * tx + j] = dsv;
+                }
+            __syncthreads();
+
+            for (int j = 0; j < kBB; ++j) {
+                const float s0 = ds_tile[2 * ty * kBS + j];
+                const float s1 = ds_tile[(2 * ty + 1) * kBS + j];
+                const float p0 = p_tile[2 * ty * kBS + j];
+                const float p1 = p_tile[(2 * ty + 1) * kBS + j];
+#pragma unroll
+                for (int jj = 0; jj < JMAX; ++jj) {
+                    const int c = tx + 16 * jj;
+                    if (c >= d) continue;
+                    const float u = b1[j * ds + c];
+                    acc1[0][jj] += s0 * u;
+                    acc1[1][jj] += s1 * u;
+                    if (kKV) {
+                        const float w = b2[j * ds + c];
+                        acc2[0][jj] += p0 * w;
+                        acc2[1][jj] += p1 * w;
+                    }
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int oi = own_lo + 2 * ty + i;
+        if (oi >= (kKV ? skv : sq)) continue;
+#pragma unroll
+        for (int jj = 0; jj < JMAX; ++jj) {
+            const int c = tx + 16 * jj;
+            if (c >= d) continue;
+            if (kKV) {
+                dk[b * dks.b + kvh * dks.h + oi * dks.s + c] =
+                    from_float<T>(acc1[i][jj] * scale);
+                dv[b * dvs.b + kvh * dvs.h + oi * dvs.s + c] =
+                    from_float<T>(acc2[i][jj]);
+            } else {
+                dq[b * dqs.b + h_own * dqs.h + oi * dqs.s + c] =
+                    from_float<T>(acc1[i][jj] * scale);
+            }
+        }
+    }
+}
+
+// strides: 24 int64, the (b, h, s) element strides of q, k, v, dout, out,
+// dq, dk and dv in that order.  scratch: 2 x B x H x sq_pad floats (delta,
+// then lse2).
+template <typename T, int JMAX>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const float* lse, const void* dout, void* dq, void* dk,
+               void* dv, float* scratch, int batch, int heads, int kv_heads,
+               int sq, int skv, int d, const int64_t* st, float scale,
+               int causal, cudaStream_t stream) {
+    const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+        vs{st[6], st[7], st[8]}, dos{st[9], st[10], st[11]},
+        os{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
+        dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
+    const int sq_pad = (sq + kPad - 1) / kPad * kPad;
+    float* delta = scratch;
+    float* lse2 = scratch + static_cast<int64_t>(batch) * heads * sq_pad;
+    int err = prep_launch<T>(out, dout, lse, delta, lse2, batch, heads, sq,
+                             d, os, dos, stream);
+    if (err != 0) return err;
+    const size_t smem = sizeof(float) * (4 * kBB * (d + 1) + 2 * kBB * kBS);
+    const float scale_log2 = scale * 1.4426950408889634f;
+    for (int pass = 0; pass < 2; ++pass) {
+        auto kernel = pass == 0 ? flash_bwd_kernel<T, JMAX, true>
+                                : flash_bwd_kernel<T, JMAX, false>;
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const dim3 grid = pass == 0
+                              ? dim3((skv + kBB - 1) / kBB, batch * kv_heads)
+                              : dim3((sq + kBB - 1) / kBB, batch * heads);
+        kernel<<<grid, kThreads, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const T*>(dout), delta,
+            lse2, static_cast<T*>(dq), static_cast<T*>(dk),
+            static_cast<T*>(dv), heads, kv_heads, sq, sq_pad, skv, d, qs, ks,
+            vs, dos, dqs, dks, dvs, scale, scale_log2, causal);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
 }
 
 }  // namespace simt
@@ -314,6 +640,7 @@ constexpr int kRowBytes = 128;   // one box row in shared memory
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 384 x 168 in all
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D> struct Layout {   // byte offsets in dynamic shared memory
     // a row of every tile is D padded to whole boxes: TMA zero-fills the
@@ -569,8 +896,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, Strides os, int heads,
-                   int group, int sq, int skv, float scale_log2, int causal) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   Strides os, int heads, int group, int sq, int skv,
+                   float scale_log2, int causal) {
     using L = Layout<D>;
     constexpr int kBoxes = L::kBoxes, kWidth = L::kWidth;
     extern __shared__ uint8_t smem_raw[];
@@ -747,13 +1075,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(empty + 8 * s);   // this stage's K and V are read
     }
 
-    // epilogue: O / max(l, 1e-30) in bf16 through out's strides, the
-    // columns below D only (fragment i holds column 8 (i >> 2) + col0)
+    // epilogue: the row's log-sum-exp, ln sum exp(S scale) = (m scale
+    // log2e + log2 l) ln 2 (-inf for a dead row), then O / max(l, 1e-30)
+    // in bf16 through out's strides, the columns below D only (fragment i
+    // holds column 8 (i >> 2) + col0)
     __nv_bfloat16* ob = out + b * os.b + h * os.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = r0 + 8 * r;
+        if (lane % 4 == 0 && row < sq)
+            lse[static_cast<int64_t>(bh) * sq + row] =
+                m[r] <= kNegInf / 2
+                    ? -__int_as_float(0x7f800000)
+                    : (m[r] * scale_log2 + log2f(l[r])) * kLn2;
         l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
 #pragma unroll
@@ -817,9 +1153,9 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int heads, int kv_heads, int sq, int skv, const int64_t* st,
-           float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int heads, int kv_heads, int sq, int skv,
+           const int64_t* st, float scale, int causal, cudaStream_t stream) {
     const EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
     CUtensorMap tq, tk, tv;
@@ -835,7 +1171,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(batch * heads, (sq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(out), os, heads,
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, os, heads,
         heads / kv_heads, sq, skv, scale * kLog2e, causal);
     return static_cast<int>(cudaGetLastError());
 }
@@ -849,15 +1185,557 @@ template <int D> int info(int* regs, int* smem) {
     return static_cast<int>(err);
 }
 
+// --- the tensor-core backward (bf16, D in {64, 128, 160}) -----------------
+// Two kernels after the preprocess (simt::prep_launch), 256 threads each:
+// two consumer warpgroups and no producer warpgroup, so that ptxas may give
+// a thread up to 255 registers (a 384-thread launch caps it at 168, which
+// dK and dV's accumulators alone would fill).  Thread 0 issues every TMA
+// load into a ring of kBwdStages stages, each with a full and an empty
+// mbarrier, refilling a stage once every thread has released it.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdStages = 2;
+constexpr int kBwdRows = 64;      // rows of a streamed tile (q or keys)
+
+template <int D> struct BwdLayout {   // byte offsets in dynamic shared memory
+    static constexpr int kBoxes = (D + kBox - 1) / kBox;
+    static constexpr int kWidth = kBoxes * kBox;
+    static constexpr int kRow = kWidth * 2;   // bytes of a padded tile row
+    // dK/dV: at D 160 one warpgroup accumulates dV and the other dK for
+    // the same 64 keys (both would not fit one thread's registers: 2 x 96
+    // floats); below, each warpgroup owns 64 keys and both sums
+    static constexpr bool kSplit = D > 128;
+    static constexpr int kKeys = kSplit ? 64 : 128;     // keys a dK/dV block
+    // dK/dV pass: K and V [kKeys, W] once; a stage Q and dO [64, W]; then
+    // a stage's lse2 and delta [64] floats each
+    static constexpr int kKvK = 0;
+    static constexpr int kKvV = kKeys * kRow;
+    static constexpr int kKvStage = 2 * kKeys * kRow;
+    static constexpr int kKvStageBytes = 2 * kBwdRows * kRow;
+    static constexpr int kKvStats = kKvStage + kBwdStages * kKvStageBytes;
+    static constexpr int kKvBar = kKvStats + kBwdStages * 2 * kBwdRows * 4;
+    static constexpr int kKvAlloc = kKvBar + 8 * (1 + 2 * kBwdStages) + 1024;
+    // dQ pass: Q and dO [128, W] once; a stage K and V [64, W]
+    static constexpr int kQRows = 128;
+    static constexpr int kQdO = kQRows * kRow;
+    static constexpr int kQStage = 2 * kQRows * kRow;
+    static constexpr int kQStageBytes = 2 * kBwdRows * kRow;
+    static constexpr int kQBar = kQStage + kBwdStages * kQStageBytes;
+    static constexpr int kQAlloc = kQBar + 8 * (1 + 2 * kBwdStages) + 1024;
+};
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory into shared memory at dst, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// Rows row0 and row0 + 8 of a 64 x W accumulator (fragment i: row row0 +
+// 8 ((i >> 1) & 1), column 8 (i >> 2) + col0 + (i & 1)), times mul, in
+// bf16 at dst + row * row_stride: rows below `rows`, columns below D.
+template <int D, int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N],
+                                           __nv_bfloat16* dst,
+                                           int64_t row_stride, int row0,
+                                           int rows, int col0, float mul) {
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (row >= rows) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dst + row * row_stride +
+                                           8 * (i >> 2) + col0) =
+            __floats2bfloat162_rn(acc[i] * mul, acc[i + 1] * mul);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ lse2,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, Strides dks,
+                     Strides dvs, int heads, int kv_heads, int sq,
+                     int sq_pad, int skv, float scale_log2, float scale,
+                     int causal) {
+    using L = BwdLayout<D>;
+    constexpr int kBoxes = L::kBoxes, kWidth = L::kWidth, kKeys = L::kKeys;
+    constexpr bool kSplit = L::kSplit;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    const uint8_t* base_ptr = smem_raw + (base - raw);
+    const uint32_t kv_full = base + L::kKvBar;
+    const uint32_t full = kv_full + 8, empty = full + 8 * kBwdStages;
+
+    const int b = blockIdx.x / kv_heads, kvh = blockIdx.x % kv_heads;
+    const int group = heads / kv_heads;
+    const int k_lo = blockIdx.y * kKeys;
+    const int n_q = (sq + kBwdRows - 1) / kBwdRows;
+    // under causal, the q tiles from the one holding row k_lo (row >= key)
+    const int qt0 = causal ? min(k_lo / kBwdRows, n_q) : 0;
+    const int per = n_q - qt0;
+    const int total = group * per;   // (head of the group, q tile) steps
+
+    auto q_dst = [&](int s) {        // Q, then dO at + kBwdRows * kRow
+        return base + L::kKvStage + s * L::kKvStageBytes;
+    };
+    auto stats = [&](int s) {        // lse2 [64], then delta [64]
+        return L::kKvStats + s * 2 * kBwdRows * 4;
+    };
+    auto issue = [&](int t) {
+        const int s = t % kBwdStages;
+        const int h = kvh * group + t / per, qt = qt0 + t % per;
+        const uint32_t bar = full + 8 * s;
+        mbar_expect_tx(bar, L::kKvStageBytes + 2 * kBwdRows * 4);
+        for (int c = 0; c < kBoxes; ++c) {
+            tma_load(q_dst(s) + c * kBwdRows * kRowBytes, &tq, bar,
+                     c * kBox, qt * kBwdRows, h, b);
+            tma_load(q_dst(s) + kBwdRows * L::kRow + c * kBwdRows * kRowBytes,
+                     &tdo, bar, c * kBox, qt * kBwdRows, h, b);
+        }
+        const int64_t row =
+            (static_cast<int64_t>(b) * heads + h) * sq_pad + qt * kBwdRows;
+        bulk_load(base + stats(s), lse2 + row, kBwdRows * 4, bar);
+        bulk_load(base + stats(s) + kBwdRows * 4, delta + row, kBwdRows * 4,
+                  bar);
+    };
+
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < kBwdStages; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, kBwdThreads);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect_tx(kv_full, 2 * kKeys * L::kRow);
+        for (int c = 0; c < kBoxes; ++c) {
+            tma_load(base + L::kKvK + c * kKeys * kRowBytes, &tk, kv_full,
+                     c * kBox, k_lo, kvh, b);
+            tma_load(base + L::kKvV + c * kKeys * kRowBytes, &tv, kv_full,
+                     c * kBox, k_lo, kvh, b);
+        }
+        for (int t = 0; t < min(total, kBwdStages); ++t) issue(t);
+    }
+    __syncwarp();
+
+    // warpgroup cw: keys kw_lo .. kw_lo + 63; this thread holds keys key0
+    // and key0 + 8 of the S^T fragments, q columns col0 + 8 j (+ 1)
+    const int cw = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int kw_lo = k_lo + (kSplit ? 0 : 64 * cw);
+    const int key0 = kw_lo + 16 * warp + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const bool do_v = !kSplit || cw == 0, do_k = !kSplit || cw == 1;
+    constexpr int kAcc = kSplit ? 1 : 2;
+    float acc[kAcc][kWidth / 2];
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+        for (int i = 0; i < kWidth / 2; ++i) acc[a][i] = 0.f;
+    float(&dva)[kWidth / 2] = acc[0];          // (at D 160 one array,
+    float(&dka)[kWidth / 2] = acc[kAcc - 1];   //  dV or dK by warpgroup)
+    const uint32_t k_tile =
+        base + L::kKvK + (kSplit ? 0 : 64 * cw * kRowBytes);
+    const uint32_t v_tile =
+        base + L::kKvV + (kSplit ? 0 : 64 * cw * kRowBytes);
+    constexpr uint32_t kNextBox = kBwdRows * kRowBytes;   // MN-major B boxes
+
+    mbar_wait(kv_full, 0);
+    for (int t = 0; t < total; ++t) {
+        const int s = t % kBwdStages;
+        const int q_lo = (qt0 + t % per) * kBwdRows;
+        const uint32_t q_tile = q_dst(s);
+        const uint32_t do_tile = q_tile + kBwdRows * L::kRow;
+        mbar_wait(full + 8 * s, (t / kBwdStages) & 1);
+        // under causal, a q tile wholly above this warpgroup's keys keeps
+        // no pair
+        if (!causal || q_lo + kBwdRows - 1 >= kw_lo) {
+            // S^T = K Q^T and dP^T = V dO^T: A = K / V rows (K-major), B =
+            // the Q / dO tile (N = 64 q rows, K-major)
+            float st[32], dpt[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+            fence_regs(st);
+            fence_regs(dpt);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                wgmma_ss_n64(
+                    st, smem_desc(k_tile + (kk / 4) * kKeys * kRowBytes + off,
+                                  16),
+                    smem_desc(q_tile + (kk / 4) * kBwdRows * kRowBytes + off,
+                              16),
+                    kk > 0);
+            }
+            if (do_k) {
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    const uint32_t off = (kk % 4) * 32;
+                    wgmma_ss_n64(
+                        dpt,
+                        smem_desc(v_tile + (kk / 4) * kKeys * kRowBytes + off,
+                                  16),
+                        smem_desc(
+                            do_tile + (kk / 4) * kBwdRows * kRowBytes + off,
+                            16),
+                        kk > 0);
+                }
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(st);
+            fence_regs(dpt);
+
+            // P^T = exp2(S^T scale log2e - lse2[col]) and dS^T = P^T o
+            // (dP^T - delta[col]), each rounded once to bf16 as the A
+            // fragments of the products (k-step kk: fragments 8 kk .. 8 kk
+            // + 7, two to a register).  Keys >= Skv and, under causal,
+            // key > row are masked; q rows >= Sq have lse2 = +inf (P = 0)
+            const float* l2 =
+                reinterpret_cast<const float*>(base_ptr + stats(s));
+            const float* dl = l2 + kBwdRows;
+            const bool edge = kw_lo + 64 > skv ||
+                              (causal && kw_lo + 63 > q_lo);
+            uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int i = 8 * kk + 2 * j;
+                    const int c = 16 * kk + 8 * (j >> 1) + col0;
+                    const int key = key0 + 8 * (j & 1);
+                    float p0 = exp2_ftz(fmaf(st[i], scale_log2, -l2[c]));
+                    float p1 =
+                        exp2_ftz(fmaf(st[i + 1], scale_log2, -l2[c + 1]));
+                    if (edge) {
+                        if (key >= skv || (causal && key > q_lo + c))
+                            p0 = 0.f;
+                        if (key >= skv || (causal && key > q_lo + c + 1))
+                            p1 = 0.f;
+                    }
+                    pa[kk][j] = bf16x2_bits(__floats2bfloat162_rn(p0, p1));
+                    dsa[kk][j] = bf16x2_bits(__floats2bfloat162_rn(
+                        p0 * (dpt[i] - dl[c]), p1 * (dpt[i + 1] - dl[c + 1])));
+                }
+            }
+
+            // dV += P^T dO and dK += dS^T Q: B = the dO / Q tile [64 q
+            // rows, W], MN-major (the transpose bit), N = W
+            fence_regs(dva);
+            fence_regs(dka);
+            wgmma_fence();
+            if (do_v) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_pv<kWidth>(
+                        dva, pa[kk],
+                        smem_desc(do_tile + kk * 16 * kRowBytes, kNextBox));
+            }
+            if (do_k) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_pv<kWidth>(
+                        dka, dsa[kk],
+                        smem_desc(q_tile + kk * 16 * kRowBytes, kNextBox));
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(dva);
+            fence_regs(dka);
+        }
+        mbar_arrive(empty + 8 * s);   // this stage's tiles are read
+        if (threadIdx.x == 0 && t + kBwdStages < total) {
+            mbar_wait(empty + 8 * s, (t / kBwdStages) & 1);
+            issue(t + kBwdStages);
+        }
+        __syncwarp();
+    }
+
+    // dV, and dK = scale dS^T Q, in bf16 through their strides: keys
+    // below Skv, columns below D
+    if (do_v)
+        store_rows<D>(dva, dv + b * dvs.b + kvh * dvs.h, dvs.s, key0, skv,
+                      col0, 1.f);
+    if (do_k)
+        store_rows<D>(dka, dk + b * dks.b + kvh * dks.h, dks.s, key0, skv,
+                      col0, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ lse2,
+                    __nv_bfloat16* __restrict__ dq, Strides dqs, int heads,
+                    int group, int sq, int sq_pad, int skv, float scale_log2,
+                    float scale, int causal) {
+    using L = BwdLayout<D>;
+    constexpr int kBoxes = L::kBoxes, kWidth = L::kWidth;
+    constexpr int kRows = L::kQRows;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_full = base + L::kQBar;
+    const uint32_t full = q_full + 8, empty = full + 8 * kBwdStages;
+
+    const int bh = blockIdx.x;
+    const int b = bh / heads, h = bh % heads, kvh = h / group;
+    const int q_lo = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+    const int n_kv = (skv + kBwdRows - 1) / kBwdRows;
+    const int total =
+        causal ? min(n_kv, (q_lo + kRows - 1) / kBwdRows + 1) : n_kv;
+
+    auto kv_dst = [&](int s) {       // K, then V at + kBwdRows * kRow
+        return base + L::kQStage + s * L::kQStageBytes;
+    };
+    auto issue = [&](int t) {
+        const int s = t % kBwdStages;
+        const uint32_t bar = full + 8 * s;
+        mbar_expect_tx(bar, L::kQStageBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+            tma_load(kv_dst(s) + c * kBwdRows * kRowBytes, &tk, bar, c * kBox,
+                     t * kBwdRows, kvh, b);
+            tma_load(kv_dst(s) + kBwdRows * L::kRow +
+                         c * kBwdRows * kRowBytes,
+                     &tv, bar, c * kBox, t * kBwdRows, kvh, b);
+        }
+    };
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < kBwdStages; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, kBwdThreads);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect_tx(q_full, 2 * kRows * L::kRow);
+        for (int c = 0; c < kBoxes; ++c) {
+            tma_load(base + c * kRows * kRowBytes, &tq, q_full, c * kBox,
+                     q_lo, h, b);
+            tma_load(base + L::kQdO + c * kRows * kRowBytes, &tdo, q_full,
+                     c * kBox, q_lo, h, b);
+        }
+        for (int t = 0; t < min(total, kBwdStages); ++t) issue(t);
+    }
+    __syncwarp();
+
+    // warpgroup cw: q rows row_lo .. row_lo + 63; this thread holds rows
+    // r0 and r0 + 8, key columns col0 + 8 j (+ 1)
+    const int cw = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int row_lo = q_lo + 64 * cw;
+    const int r0 = row_lo + 16 * warp + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const int64_t stat = static_cast<int64_t>(bh) * sq_pad;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        l2[r] = row < sq ? lse2[stat + row] : __int_as_float(0x7f800000);
+        dl[r] = row < sq ? delta[stat + row] : 0.f;
+    }
+    float dqa[kWidth / 2];
+#pragma unroll
+    for (int i = 0; i < kWidth / 2; ++i) dqa[i] = 0.f;
+    const uint32_t q_tile = base + 64 * cw * kRowBytes;
+    const uint32_t do_tile = base + L::kQdO + 64 * cw * kRowBytes;
+    constexpr uint32_t kNextBox = kBwdRows * kRowBytes;
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < total; ++t) {
+        const int s = t % kBwdStages;
+        const int k_lo = t * kBwdRows;
+        const uint32_t k_tile = kv_dst(s);
+        const uint32_t v_tile = k_tile + kBwdRows * L::kRow;
+        mbar_wait(full + 8 * s, (t / kBwdStages) & 1);
+        if (!causal || k_lo <= row_lo + 63) {
+            // S = Q K^T and dP = dO V^T: A = the Q / dO rows (K-major), B
+            // = the K / V tile (N = 64 keys, K-major)
+            float sc[32], dp[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+            fence_regs(sc);
+            fence_regs(dp);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                wgmma_ss_n64(
+                    sc, smem_desc(q_tile + (kk / 4) * kRows * kRowBytes + off,
+                                  16),
+                    smem_desc(k_tile + (kk / 4) * kBwdRows * kRowBytes + off,
+                              16),
+                    kk > 0);
+            }
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t off = (kk % 4) * 32;
+                wgmma_ss_n64(
+                    dp, smem_desc(do_tile + (kk / 4) * kRows * kRowBytes + off,
+                                  16),
+                    smem_desc(v_tile + (kk / 4) * kBwdRows * kRowBytes + off,
+                              16),
+                    kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(sc);
+            fence_regs(dp);
+
+            // dS = P o (dP - delta), P = exp2(S scale log2e - lse2), masked
+            // as in the dK/dV pass, rounded once to bf16 A fragments
+            const bool edge = k_lo + kBwdRows > skv ||
+                              (causal && k_lo + kBwdRows - 1 > row_lo);
+            uint32_t dsa[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int i = 8 * kk + 2 * j, r = j & 1;
+                    const int row = r0 + 8 * r;
+                    const int key = k_lo + 16 * kk + 8 * (j >> 1) + col0;
+                    float p0 = exp2_ftz(fmaf(sc[i], scale_log2, -l2[r]));
+                    float p1 = exp2_ftz(fmaf(sc[i + 1], scale_log2, -l2[r]));
+                    if (edge) {
+                        if (key >= skv || (causal && key > row)) p0 = 0.f;
+                        if (key + 1 >= skv || (causal && key + 1 > row))
+                            p1 = 0.f;
+                    }
+                    dsa[kk][j] = bf16x2_bits(__floats2bfloat162_rn(
+                        p0 * (dp[i] - dl[r]), p1 * (dp[i + 1] - dl[r])));
+                }
+            }
+
+            // dQ += dS K: B = the K tile [64 keys, W], MN-major
+            fence_regs(dqa);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_pv<kWidth>(
+                    dqa, dsa[kk],
+                    smem_desc(k_tile + kk * 16 * kRowBytes, kNextBox));
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(dqa);
+        }
+        mbar_arrive(empty + 8 * s);   // this stage's K and V are read
+        if (threadIdx.x == 0 && t + kBwdStages < total) {
+            mbar_wait(empty + 8 * s, (t / kBwdStages) & 1);
+            issue(t + kBwdStages);
+        }
+        __syncwarp();
+    }
+
+    // dQ = scale dS K in bf16 through dq's strides: rows below Sq
+    store_rows<D>(dqa, dq + b * dqs.b + h * dqs.h, dqs.s, r0, sq, col0,
+                  scale);
+}
+
+// strides as simt::launch_bwd's (q, k, v and dout's TMA-ready); scratch:
+// 2 x B x H x sq_pad floats (delta, then lse2)
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const float* lse, const void* dout, void* dq, void* dk,
+               void* dv, float* scratch, int batch, int heads, int kv_heads,
+               int sq, int skv, const int64_t* st, float scale, int causal,
+               cudaStream_t stream) {
+    using L = BwdLayout<D>;
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    // the dK/dV pass streams 64-row Q / dO tiles past kKeys-row K / V; the
+    // dQ pass streams 64-row K / V tiles past 128-row Q / dO
+    CUtensorMap q64, do64, k_kv, v_kv, q128, do128, k64, v64;
+    if (!make_map(encode, &q64, q, D, sq, heads, batch, st, kBwdRows) ||
+        !make_map(encode, &do64, dout, D, sq, heads, batch, st + 9,
+                  kBwdRows) ||
+        !make_map(encode, &k_kv, k, D, skv, kv_heads, batch, st + 3,
+                  L::kKeys) ||
+        !make_map(encode, &v_kv, v, D, skv, kv_heads, batch, st + 6,
+                  L::kKeys) ||
+        !make_map(encode, &q128, q, D, sq, heads, batch, st, L::kQRows) ||
+        !make_map(encode, &do128, dout, D, sq, heads, batch, st + 9,
+                  L::kQRows) ||
+        !make_map(encode, &k64, k, D, skv, kv_heads, batch, st + 3,
+                  kBwdRows) ||
+        !make_map(encode, &v64, v, D, skv, kv_heads, batch, st + 6,
+                  kBwdRows))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Strides os{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
+        dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]},
+        dos{st[9], st[10], st[11]};
+    const int sq_pad = (sq + simt::kPad - 1) / simt::kPad * simt::kPad;
+    float* delta = scratch;
+    float* lse2 = scratch + static_cast<int64_t>(batch) * heads * sq_pad;
+    int err = simt::prep_launch<__nv_bfloat16>(
+        out, dout, lse, delta, lse2, batch, heads, sq, D,
+        simt::Strides{os.b, os.h, os.s}, simt::Strides{dos.b, dos.h, dos.s},
+        stream);
+    if (err != 0) return err;
+    const float scale_log2 = scale * kLog2e;
+
+    auto dkv = flash_bwd_dkv_kernel<D>;
+    cudaError_t e = cudaFuncSetAttribute(
+        dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kKvAlloc);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dkv<<<dim3(batch * kv_heads, (skv + L::kKeys - 1) / L::kKeys),
+          kBwdThreads, L::kKvAlloc, stream>>>(
+        q64, k_kv, v_kv, do64, delta, lse2,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        dks, dvs, heads, kv_heads, sq, sq_pad, skv, scale_log2, scale,
+        causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+
+    auto dqk = flash_bwd_dq_kernel<D>;
+    e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kQAlloc);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dqk<<<dim3(batch * heads, (sq + L::kQRows - 1) / L::kQRows), kBwdThreads,
+          L::kQAlloc, stream>>>(
+        q128, k64, v64, do128, delta, lse2, static_cast<__nv_bfloat16*>(dq),
+        dqs, heads, heads / kv_heads, sq, sq_pad, skv, scale_log2, scale,
+        causal);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int D> int bwd_info(int which, int* regs, int* smem) {
+    cudaFuncAttributes attr;
+    const cudaError_t err =
+        which == 0 ? cudaFuncGetAttributes(&attr, flash_bwd_dkv_kernel<D>)
+                   : cudaFuncGetAttributes(&attr, flash_bwd_dq_kernel<D>);
+    *regs = attr.numRegs;
+    *smem = which == 0 ? BwdLayout<D>::kKvAlloc : BwdLayout<D>::kQAlloc;
+    return static_cast<int>(err);
+}
+
 }  // namespace tc
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 int64, the (b, h, s) element
-// strides of q, k, v and out in that order (d is contiguous).
+// strides of q, k, v and out in that order (d is contiguous).  lse: float32
+// [B, H, Sq], contiguous.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out, int batch,
-                                      int heads, int kv_heads, int sq,
-                                      int skv, int d, const int64_t* strides,
-                                      float scale, int causal, void* stream) {
+                                      const void* v, void* out, float* lse,
+                                      int batch, int heads, int kv_heads,
+                                      int sq, int skv, int d,
+                                      const int64_t* strides, float scale,
+                                      int causal, void* stream) {
     if (batch < 1 || kv_heads < 1 || heads % kv_heads != 0 || d < 1 ||
         d > 256 || sq < 1 || skv < 1 ||
         static_cast<int64_t>(batch) * heads > 65535)
@@ -867,17 +1745,21 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     const bool wide = d > 128;
     switch (dtype) {
         case 0:
-            return wide ? launch<float, 16>(q, k, v, out, batch, heads, kv_heads,
-                                            sq, skv, d, strides, scale, causal, s)
-                        : launch<float, 8>(q, k, v, out, batch, heads, kv_heads,
-                                           sq, skv, d, strides, scale, causal, s);
+            return wide ? launch<float, 16>(q, k, v, out, lse, batch, heads,
+                                            kv_heads, sq, skv, d, strides,
+                                            scale, causal, s)
+                        : launch<float, 8>(q, k, v, out, lse, batch, heads,
+                                           kv_heads, sq, skv, d, strides,
+                                           scale, causal, s);
         case 1:
-            return wide ? launch<__nv_bfloat16, 16>(q, k, v, out, batch, heads,
-                                                    kv_heads, sq, skv, d,
-                                                    strides, scale, causal, s)
-                        : launch<__nv_bfloat16, 8>(q, k, v, out, batch, heads,
-                                                   kv_heads, sq, skv, d,
-                                                   strides, scale, causal, s);
+            return wide ? launch<__nv_bfloat16, 16>(q, k, v, out, lse, batch,
+                                                    heads, kv_heads, sq, skv,
+                                                    d, strides, scale, causal,
+                                                    s)
+                        : launch<__nv_bfloat16, 8>(q, k, v, out, lse, batch,
+                                                   heads, kv_heads, sq, skv,
+                                                   d, strides, scale, causal,
+                                                   s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -885,10 +1767,10 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
 
 // bf16 q, k, v, out with D 64, 128 or 160 (the wrapper checks the 16-byte
 // alignment TMA needs: base pointers, and the (b, h, s) strides of q, k
-// and v in bytes).  strides as flash_attention_launch.
+// and v in bytes).  strides and lse as flash_attention_launch.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* out,
-                                            int batch, int heads,
+                                            float* lse, int batch, int heads,
                                             int kv_heads, int sq, int skv,
                                             int d, const int64_t* strides,
                                             float scale, int causal,
@@ -899,14 +1781,87 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
     const auto s = static_cast<cudaStream_t>(stream);
     switch (d) {
         case 64:
-            return tc::launch<64>(q, k, v, out, batch, heads, kv_heads, sq,
-                                  skv, strides, scale, causal, s);
+            return tc::launch<64>(q, k, v, out, lse, batch, heads, kv_heads,
+                                  sq, skv, strides, scale, causal, s);
         case 128:
-            return tc::launch<128>(q, k, v, out, batch, heads, kv_heads, sq,
-                                   skv, strides, scale, causal, s);
+            return tc::launch<128>(q, k, v, out, lse, batch, heads, kv_heads,
+                                   sq, skv, strides, scale, causal, s);
         case 160:
-            return tc::launch<160>(q, k, v, out, batch, heads, kv_heads, sq,
-                                   skv, strides, scale, causal, s);
+            return tc::launch<160>(q, k, v, out, lse, batch, heads, kv_heads,
+                                   sq, skv, strides, scale, causal, s);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The backward, three launches (delta and lse2, dK/dV, dQ): dq, dk and dv
+// of the forward whose out and lse are given, from the output gradient
+// dout (q's shape and dtype).  strides: 24 int64, the (b, h, s) element
+// strides of q, k, v, dout, out, dq, dk and dv in that order.  scratch: 2 x
+// B x H x sq_pad floats, sq_pad = Sq rounded up to 64.  dtype as
+// flash_attention_launch: float32, or bf16 at any D (SIMT).
+extern "C" int flash_attention_bwd_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* out,
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    float* scratch, int batch, int heads, int kv_heads, int sq, int skv,
+    int d, const int64_t* strides, float scale, int causal, void* stream) {
+    if (batch < 1 || kv_heads < 1 || heads % kv_heads != 0 || d < 1 ||
+        d > 256 || sq < 1 || skv < 1 ||
+        static_cast<int64_t>(batch) * heads > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    using simt::launch_bwd;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool wide = d > 128;
+    switch (dtype) {
+        case 0:
+            return wide ? launch_bwd<float, 16>(q, k, v, out, lse, dout, dq,
+                                                dk, dv, scratch, batch, heads,
+                                                kv_heads, sq, skv, d, strides,
+                                                scale, causal, s)
+                        : launch_bwd<float, 8>(q, k, v, out, lse, dout, dq,
+                                               dk, dv, scratch, batch, heads,
+                                               kv_heads, sq, skv, d, strides,
+                                               scale, causal, s);
+        case 1:
+            return wide ? launch_bwd<__nv_bfloat16, 16>(
+                              q, k, v, out, lse, dout, dq, dk, dv, scratch,
+                              batch, heads, kv_heads, sq, skv, d, strides,
+                              scale, causal, s)
+                        : launch_bwd<__nv_bfloat16, 8>(
+                              q, k, v, out, lse, dout, dq, dk, dv, scratch,
+                              batch, heads, kv_heads, sq, skv, d, strides,
+                              scale, causal, s);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The tensor-core backward: bf16 with D 64, 128 or 160; q, k, v and dout
+// 16-byte aligned for TMA (the wrapper checks).  Arguments as
+// flash_attention_bwd_launch's, without the dtype.
+extern "C" int flash_attention_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const float* lse, const void* dout, void* dq, void* dk, void* dv,
+    float* scratch, int batch, int heads, int kv_heads, int sq, int skv,
+    int d, const int64_t* strides, float scale, int causal, void* stream) {
+    if (batch < 1 || kv_heads < 1 || heads % kv_heads != 0 || sq < 1 ||
+        skv < 1 || static_cast<int64_t>(batch) * heads > 65535 ||
+        (skv + 63) / 64 > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (d) {
+        case 64:
+            return tc::launch_bwd<64>(q, k, v, out, lse, dout, dq, dk, dv,
+                                      scratch, batch, heads, kv_heads, sq,
+                                      skv, strides, scale, causal, s);
+        case 128:
+            return tc::launch_bwd<128>(q, k, v, out, lse, dout, dq, dk, dv,
+                                       scratch, batch, heads, kv_heads, sq,
+                                       skv, strides, scale, causal, s);
+        case 160:
+            return tc::launch_bwd<160>(q, k, v, out, lse, dout, dq, dk, dv,
+                                       scratch, batch, heads, kv_heads, sq,
+                                       skv, strides, scale, causal, s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -920,6 +1875,18 @@ extern "C" int flash_attention_wgmma_info(int d, int* regs, int* smem) {
         case 64: return tc::info<64>(regs, smem);
         case 128: return tc::info<128>(regs, smem);
         case 160: return tc::info<160>(regs, smem);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The same for the tensor-core backward's dK/dV (which 0) and dQ (which
+// 1) kernels.
+extern "C" int flash_attention_bwd_wgmma_info(int d, int which, int* regs,
+                                              int* smem) {
+    switch (d) {
+        case 64: return tc::bwd_info<64>(which, regs, smem);
+        case 128: return tc::bwd_info<128>(which, regs, smem);
+        case 160: return tc::bwd_info<160>(which, regs, smem);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

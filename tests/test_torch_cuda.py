@@ -21,7 +21,9 @@ from repro_torch.kernels.bloom_probe import ref as bp_ref
 from repro_torch.kernels.bloom_probe.ops import DEFAULT_COEFFS
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.kernels.hash_probe import kernel as hp_kernel
 from repro_torch.kernels.hash_probe import ref as hp_ref
 from repro_torch.kernels.hash_probe.ops import DEFAULT_A
@@ -303,15 +305,18 @@ def test_bloom_probe_op_is_one_mask_launch(cuda, s, k, q):
     assert moved == {"bloom_probe_mask": 1}, moved
 
 
-def _assert_one_launch(before, kind):
-    """K5 launched once since ``before``, on variant ``kind``."""
+def _assert_one_launch(before, kind, backward=False):
+    """K5's forward (or, with ``backward``, its backward) launched once
+    since ``before``, on variant ``kind``, and nothing else of K5."""
     after = launch_counts()
     moved = {n: after[n] - before.get(n, 0) for n in after
              if n.startswith("flash_attention")}
-    want = {"flash_attention": 1}
-    want.update({f"flash_attention_{o}": int(o == kind)
+    name = "flash_attention_bwd" if backward else "flash_attention"
+    want = {n: 0 for n in ("flash_attention", "flash_attention_bwd")}
+    want.update({f"{n}_{o}": 0 for n in want
                  for o in fa_kernel.VARIANT_LAUNCHES})
-    assert moved == want, moved
+    want.update({name: 1, f"{name}_{kind}": 1})
+    assert {n: moved.get(n, 0) for n in want} == want, moved
 
 
 @pytest.mark.parametrize("b,h,kh,sq,skv,d", [
@@ -345,13 +350,17 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
                for shape in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d)))
     before = launch_counts()
-    got = fa_kernel.flash_attention_kernel(q, k, v, causal)
+    got, lse = fa_kernel.flash_attention_kernel(q, k, v, causal)
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
     assert got.dtype == dtype
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
            dict(rtol=2.0 ** -8, atol=1e-4))
     torch.testing.assert_close(got.float(), want, **tol)
     _assert_one_launch(before, fa_kernel.variant(dtype, d))
+    # the rows' log-sum-exp, float32 in both variants
+    torch.testing.assert_close(
+        lse, attention_lse_ref(q.float(), k.float(), v.float(), causal),
+        rtol=1e-5, atol=1e-5)
     # the model layout through strides, no copy
     bshd = fa_ops.flash_attention_bshd(q.transpose(1, 2).contiguous(),
                                        k.transpose(1, 2).contiguous(),
@@ -374,10 +383,10 @@ def test_flash_attention_wgmma_d160_reads_no_column_past_d(cuda, causal):
         wide.append(x.to(torch.bfloat16))
     q, k, v = (x[..., :160].transpose(1, 2) for x in wide)
     before = launch_counts()
-    got = fa_kernel.flash_attention_kernel(q, k, v, causal)
+    got, _ = fa_kernel.flash_attention_kernel(q, k, v, causal)
     _assert_one_launch(before, "wgmma")
     assert bool(torch.isfinite(got).all())
-    dense = fa_kernel.flash_attention_kernel(
+    dense, _ = fa_kernel.flash_attention_kernel(
         *(x.contiguous() for x in (q, k, v)), causal)
     torch.testing.assert_close(got, dense, rtol=0, atol=0)
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
@@ -385,8 +394,9 @@ def test_flash_attention_wgmma_d160_reads_no_column_past_d(cuda, causal):
 
 
 def test_flash_attention_grad_on_the_card(cuda):
-    """Forward on K5, backward through attention_ref: the gradient equals
-    autograd of the plain version."""
+    """Forward and backward on K5 (float32: both SIMT kernels): the
+    gradient equals autograd of the plain version within 1e-5 (float32
+    products in both, summed in other orders)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     shapes = ((2, 4, 100, 32), (2, 2, 100, 32), (2, 2, 100, 32))
     xs = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
@@ -399,6 +409,12 @@ def test_flash_attention_grad_on_the_card(cuda):
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
 
 
+def _rel_rms(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(((got - want) ** 2).mean().sqrt() /
+                 (want ** 2).mean().sqrt())
+
+
 @pytest.mark.parametrize("b,sq,dtype", [(4, 2048, torch.bfloat16),
                                          (1, 512, torch.bfloat16),
                                          (1, 512, torch.float32)])
@@ -407,9 +423,14 @@ def test_flash_attention_training_shape_forward_and_backward(cuda, b, sq,
     """qwen2-1.5b's training attention, ``[B, 12/2, S, 128]`` causal in the
     model's [B, S, H, D] layout (the full step's shape first): the forward
     on K5 (``wgmma`` in bf16) within the kernel tests' tolerance of
-    attention_ref in float32, one launch; the backward, attention_ref's
-    pullback, equal to autograd of the plain version on the same inputs
-    within 1e-5."""
+    attention_ref in float32, one launch; the backward on K5's backward
+    kernel, one launch of the same variant, against the float32 pullback
+    (autograd of attention_ref on the inputs in float32): float32 within
+    1e-5 (see below); bf16, whose kernel rounds P and dS to bf16 once and
+    writes bf16 gradients, by a witness: each gradient's rms distance
+    from the float32 pullback at most 1.25x SDPA backward's on the same
+    inputs."""
+    import torch.nn.functional as F
     gen = torch.Generator(device=cuda).manual_seed(sq + b)
     xs = [torch.randn((b, sq, h, 128), generator=gen, device=cuda).to(dtype)
           for h in (12, 2, 2)]
@@ -418,18 +439,128 @@ def test_flash_attention_training_shape_forward_and_backward(cuda, b, sq,
     before = launch_counts()
     out = fa_ops.flash_attention_bshd(*a, causal=True)
     _assert_one_launch(before, fa_kernel.variant(dtype, 128))
-    ref = [x.clone().requires_grad_(True) for x in xs]
-    want = attention_ref(*(x.transpose(1, 2) for x in ref),
-                         causal=True).transpose(1, 2)
-    exact = attention_ref(*(x.float().transpose(1, 2) for x in xs),
+    f32 = [x.float().requires_grad_(True) for x in xs]
+    exact = attention_ref(*(x.transpose(1, 2) for x in f32),
                           causal=True).transpose(1, 2)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
            dict(rtol=2.0 ** -8, atol=1e-4))
-    torch.testing.assert_close(out.float(), exact, **tol)
+    torch.testing.assert_close(out.float(), exact.detach(), **tol)
+    before = launch_counts()
     (out * w).sum().backward()
-    (want * w).sum().backward()
-    for x, y in zip(a, ref):
-        torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
+    _assert_one_launch(before, fa_kernel.variant(dtype, 128), backward=True)
+    (exact * w.float()).sum().backward()
+    if dtype == torch.float32:
+        # an early key's dK or dV sums up to 512 rows x 6 heads of terms
+        # that largely cancel (key 0 of [1, 512, 2, 128], about 0.014), and
+        # the kernel sums them in another order than autograd's pullback,
+        # so float32 rounding alone can move such an element by ~1e-5:
+        # each element within 1e-5 of attention_bwd_ref (the same
+        # equations on the same out and lse), each gradient within 1e-5
+        # relative rms of the pullback
+        t = [x.transpose(1, 2) for x in xs]
+        want = attention_bwd_ref(*t, out.detach().transpose(1, 2),
+                                 attention_lse_ref(*t, causal=True),
+                                 w.transpose(1, 2), True)
+        for x, y, z in zip(a, f32, want):
+            torch.testing.assert_close(x.grad, z.transpose(1, 2), rtol=1e-5,
+                                       atol=1e-5)
+            assert _rel_rms(x.grad, y.grad) <= 1e-5
+        return
+    lib = [x.transpose(1, 2).contiguous().requires_grad_(True) for x in xs]
+    ref = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                         enable_gqa=True)
+    (ref * w.transpose(1, 2)).sum().backward()
+    for x, y, z in zip(a, f32, lib):
+        ours = _rel_rms(x.grad, y.grad)
+        sdpa = _rel_rms(z.grad.transpose(1, 2), y.grad)
+        assert ours <= 1.25 * sdpa, (ours, sdpa)
+
+
+#: (B, H, KH, Sq, Skv, D): ragged lengths off every tile size, Sq != Skv
+#: both ways (causal with Sq > Skv among them), GQA groups 1, 2, 4 and 6,
+#: one key and one query row
+BWD_SHAPES = [(1, 2, 1, 200, 200, 64), (2, 4, 2, 333, 129, 64),
+              (1, 6, 1, 65, 1, 64), (1, 2, 1, 1, 300, 64),
+              (1, 8, 2, 300, 200, 128), (2, 4, 4, 128, 320, 128),
+              (1, 12, 2, 1000, 777, 128), (1, 4, 1, 257, 257, 128),
+              (2, 8, 2, 200, 200, 160), (1, 32, 8, 300, 300, 160),
+              (1, 6, 1, 333, 129, 160), (1, 2, 1, 1, 300, 160)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES +
+                         [(2, 4, 2, 200, 300, 32), (1, 4, 1, 300, 200, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_kernel_matches_plain(cuda, shape, causal,
+                                                       dtype):
+    """K5's backward against attention_bwd_ref on the same inputs, out and
+    lse (the kernel's forward's) and output gradient: float32 (SIMT)
+    within 1e-5; bf16 at D 64 / 128 / 160 (wgmma) and at other D (SIMT)
+    within 1e-2 relative rms (+ 1e-5 absolute), the bf16 rounding of P
+    and dS (wgmma) and of the gradients (2^-9 relative each).  One
+    backward launch of the variant ``variant`` names, and two calls are
+    bit-equal."""
+    b, h, kh, sq, skv, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq * skv + d + causal)
+    q, k, v, g = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+                  for s in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d),
+                            (b, h, sq, d)))
+    out, lse = fa_kernel.flash_attention_kernel(q, k, v, causal)
+    before = launch_counts()
+    got = fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, causal)
+    _assert_one_launch(before, fa_kernel.variant(dtype, d), backward=True)
+    want = attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse,
+                             g.float(), causal)
+    for x, y, like in zip(got, want, (q, k, v)):
+        assert x.dtype == dtype and x.shape == like.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        else:
+            # (+ 1e-5 absolute where the gradient is cancellation noise:
+            # a row keeping one key has dS = dP - delta = 0 in exact
+            # arithmetic, ~1e-7 in both)
+            err = float(((x.float() - y) ** 2).mean().sqrt())
+            assert bool(torch.isfinite(x).all())
+            assert err <= 1e-2 * float((y ** 2).mean().sqrt()) + 1e-5, err
+    again = fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, causal)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 160),
+                                     (torch.float32, 64)])
+def test_flash_attention_backward_layouts(cuda, dtype, d):
+    """The model's [B, S, H, D] layout (read and written through strides)
+    gives the contiguous inputs' gradients bit for bit, laid out like the
+    inputs; so does a stride-0 output gradient (``out.sum()``'s), which
+    the wrapper copies to a contiguous one; each backward is one launch of
+    K5's backward and launches nothing else."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    xs = [torch.randn((2, 300, h, d), generator=gen, device=cuda).to(dtype)
+          for h in (8, 2, 2)]
+    grads = {}
+    for layout in ("bshd", "bhsd"):
+        a = [x.clone().requires_grad_(True) if layout == "bshd" else
+             x.transpose(1, 2).contiguous().requires_grad_(True) for x in xs]
+        fn = fa_ops.flash_attention_bshd if layout == "bshd" else \
+            fa_ops.flash_attention
+        out = fn(*a, causal=True)
+        before = launch_counts()
+        out.sum().backward()
+        _assert_one_launch(before, fa_kernel.variant(dtype, d),
+                           backward=True)
+        for x, t in zip(a, xs):
+            assert x.grad.stride() == x.stride()
+        grads[layout] = [x.grad if layout == "bhsd" else
+                         x.grad.transpose(1, 2) for x in a]
+        # out.sum()'s gradient is a stride-0 expand; a dense one of ones
+        ones = torch.ones(out.shape, device=cuda, dtype=dtype)
+        again = torch.autograd.grad(fn(*a, causal=True), a, ones)
+        for x, y in zip(again, (t.grad for t in a)):
+            assert torch.equal(x, y)
+    for x, y in zip(grads["bshd"], grads["bhsd"]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("d", [64, 160])

@@ -1,0 +1,248 @@
+"""Kernel K5's backward on the CPU: the port's ``flash_attention`` op
+(its forward's log-sum-exp and its backward op, ``attention_bwd_ref`` on
+CPU tensors) against ``jax.grad`` of the JAX package's ``flash_attention``
+(the Pallas forward in interpret mode, its custom VJP's ``_bwd``), on the
+same inputs made from a seed with numpy, in float32 within 1e-5; the
+log-sum-exp against float64 numpy; the backward op's fake implementation,
+flop formula, layouts and routes.  The kernel itself runs only on the card
+(``tests/test_torch_cuda.py``).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention import ops as r_fa_ops
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import kernel as p_fa_kernel
+from repro_torch.kernels.flash_attention import ops as p_fa_ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(seed, b, h, kh, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, kh, skv, d)).astype(np.float32)
+    v = rng.standard_normal((b, kh, skv, d)).astype(np.float32)
+    w = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    return q, k, v, w
+
+
+def _jax_grads(q, k, v, w, causal):
+    def loss(q, k, v):
+        out = r_fa_ops.flash_attention(q, k, v, causal, 128, 128, True)
+        return jnp.sum(out * jnp.asarray(w))
+    return jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **tol)
+
+
+# (B, H, KH, Sq, Skv, D, causal): GQA groups 2 and 4, causal and not,
+# ragged Sq = Skv = 200, Sq 100 with Skv 77, Sq 64 with Skv 192, causal
+# with Sq 300 > Skv 200 (where the reference op's forward pads wrongly,
+# ROADMAP Queue 3; its _bwd differentiates attention_ref unpadded), and
+# D 16, 64, 128 and 160
+CASES = [
+    (1, 4, 2, 72, 72, 16, True), (2, 8, 2, 64, 64, 16, False),
+    (1, 4, 1, 96, 96, 16, True),
+    (1, 2, 1, 200, 200, 16, True), (1, 2, 2, 200, 200, 16, False),
+    (1, 2, 2, 100, 77, 16, False), (1, 2, 1, 64, 192, 16, True),
+    (1, 2, 1, 64, 192, 16, False), (1, 2, 1, 300, 200, 16, True),
+    (1, 2, 1, 130, 130, 64, True), (1, 4, 2, 100, 100, 128, False),
+    (1, 2, 1, 130, 130, 160, True), (1, 4, 2, 100, 77, 160, False),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal", CASES)
+def test_backward_matches_jax_grad(b, h, kh, sq, skv, d, causal):
+    """The op's gradients (CPU route: attention_bwd_ref from the forward's
+    out and lse) and attention_bwd_ref called directly with the op's out
+    and lse, both against jax.grad of the JAX package's op."""
+    q, k, v, w = _inputs(sq * 1000 + skv + d, b, h, kh, sq, skv, d)
+    want = _jax_grads(q, k, v, w, causal)
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    (p_fa_ops.flash_attention(*ts, causal) * torch.as_tensor(w)).sum() \
+        .backward()
+    for t, g in zip(ts, want):
+        _close(t.grad, g, **TOL)
+    qt, kt, vt = map(torch.as_tensor, (q, k, v))
+    out, lse = p_fa_ops.flash_attention_fwd(qt, kt, vt, causal)
+    direct = attention_bwd_ref(qt, kt, vt, out, lse, torch.as_tensor(w),
+                               causal)
+    for x, g, like in zip(direct, want, (q, k, v)):
+        assert x.dtype == torch.float32 and x.shape == like.shape
+        _close(x, g, **TOL)
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal", [
+    (1, 4, 2, 72, 72, 16, True), (1, 2, 2, 100, 77, 16, False),
+    (1, 2, 1, 300, 200, 16, True), (1, 2, 1, 64, 192, 16, True),
+    (2, 4, 4, 50, 130, 160, False)])
+def test_lse_matches_float64(b, h, kh, sq, skv, d, causal):
+    """The forward's row log-sum-exp against numpy's in float64 over the
+    scaled scores of the keys the top-left causal mask keeps."""
+    q, k, _, _ = _inputs(sq + skv, b, h, kh, sq, skv, d)
+    _, lse = p_fa_ops.flash_attention_fwd(
+        *map(torch.as_tensor, (q, k, k)), causal)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    kg = np.repeat(k.astype(np.float64), h // kh, axis=1)
+    s = np.einsum("bhid,bhjd->bhij", q.astype(np.float64), kg)
+    s = s / math.sqrt(d)
+    if causal:
+        s = np.where(np.arange(sq)[:, None] >= np.arange(skv)[None, :], s,
+                     -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-6)
+    plain = attention_lse_ref(*map(torch.as_tensor, (q, k, k)), causal)
+    torch.testing.assert_close(plain, lse, rtol=0, atol=0)
+
+
+def test_no_keys_gives_minus_inf_and_zero_gradients():
+    """Skv = 0: every row keeps no key; lse is -inf, the output and the
+    gradients are zero, nowhere NaN."""
+    q = torch.randn(1, 2, 5, 8, requires_grad=True)
+    k = torch.randn(1, 1, 0, 8, requires_grad=True)
+    v = torch.randn(1, 1, 0, 8, requires_grad=True)
+    out, lse = p_fa_ops.flash_attention_fwd(q, k, v, True)
+    assert bool((lse == float("-inf")).all())
+    assert bool((out == 0).all())
+    (p_fa_ops.flash_attention(q, k, v, True) * 3.0).sum().backward()
+    assert q.grad is not None and bool((q.grad == 0).all())
+    assert k.grad.shape == k.shape and v.grad.shape == v.shape
+    dq, dk, dv = attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                   out, lse, torch.ones_like(out), True)
+    assert bool((dq == 0).all()) and not bool(torch.isnan(dq).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_fake_impl_shapes_and_strides(dtype):
+    """On fake CUDA tensors (the dry run's), the backward op returns q's,
+    k's and v's shapes, dtypes and strides ([B, S, H, D] views), and the
+    forward a float32 [B, H, Sq] lse."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    b, h, kh, sq, skv, d = 2, 8, 2, 48, 40, 64
+    with FakeTensorMode():
+        q = torch.empty(b, sq, h, d, device="cuda",
+                        dtype=dtype).transpose(1, 2)
+        k = torch.empty(b, skv, kh, d, device="cuda",
+                        dtype=dtype).transpose(1, 2)
+        v = torch.empty(b, kh, skv, d, device="cuda", dtype=dtype)
+        out, lse = p_fa_ops.flash_attention_fwd(q, k, v, True)
+        grads = p_fa_ops.flash_attention_bwd(q, k, v, out, lse, out, True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert out.stride() == q.stride()
+    for g, like in zip(grads, (q, k, v)):
+        assert g.shape == like.shape and g.dtype == dtype
+        assert g.stride() == like.stride() and g.device.type == "cuda"
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(48, 48, True), (48, 20, True),
+                                           (20, 48, True), (48, 20, False)])
+def test_forward_and_backward_flop_count(sq, skv, causal):
+    """FlopCounterMode counts one forward and one backward at (4 + 10) B H
+    D x the kept pairs: the function's two and five products, by the two
+    ops' formulas."""
+    from torch.utils.flop_counter import FlopCounterMode
+    b, h, kh, d = 2, 4, 2, 16
+    q = torch.randn(b, sq, h, d).transpose(1, 2).requires_grad_(True)
+    k = torch.randn(b, kh, skv, d, requires_grad=True)
+    with FlopCounterMode(display=False) as counter:
+        p_fa_ops.flash_attention(q, k, k, causal).sum().backward()
+    pairs = p_fa_ops.kept_pairs(sq, skv, causal)
+    assert counter.get_total_flops() == 14 * b * h * d * pairs
+
+
+def test_backward_variant_by_input():
+    """The backward takes the forward's variant rule: wgmma for bf16 at D
+    64, 128 and 160, SIMT for float32 and for bf16 at any other D; each
+    variant has its own counter beside flash_attention_bwd."""
+    for d in (64, 128, 160):
+        assert p_fa_kernel.variant(torch.bfloat16, d) == "wgmma"
+        assert p_fa_kernel.variant(torch.float32, d) == "simt"
+    for d in (16, 32, 96, 256):
+        assert p_fa_kernel.variant(torch.bfloat16, d) == "simt"
+    names = {c.name for c in (p_fa_kernel.BWD_LAUNCHES,
+                              *p_fa_kernel.BWD_VARIANT_LAUNCHES.values())}
+    assert names == {"flash_attention_bwd", "flash_attention_bwd_wgmma",
+                     "flash_attention_bwd_simt"}
+
+
+def test_backward_routes_by_device():
+    """CPU tensors take the plain backward and launch nothing; the kernel
+    wrapper refuses CPU tensors; meta tensors take the op's fake
+    implementation, which the route itself refuses."""
+    x = torch.randn(1, 2, 8, 16)
+    out, lse = p_fa_ops.flash_attention_fwd(x, x, x, True)
+    reset_launch_counts()
+    p_fa_ops.flash_attention_bwd(x, x, x, out, lse, out, True)
+    assert all(n == 0 for name, n in launch_counts().items()
+               if name.startswith("flash_attention"))
+    with pytest.raises(ValueError):
+        p_fa_kernel.flash_attention_bwd_kernel(x, x, x, out, lse, out)
+    m = x.to("meta")
+    grads = p_fa_ops.flash_attention_bwd(m, m, m, m, lse.to("meta"), m, True)
+    assert all(g.device.type == "meta" and g.shape == x.shape for g in grads)
+    with pytest.raises(ValueError):
+        p_fa_ops._backward_op(m, m, m, m, lse.to("meta"), m, True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_layout_and_expanded_gradient(causal):
+    """The model's [B, S, H, D] layout gives the contiguous layout's
+    gradients, laid out like their inputs; the stride-0 gradient of
+    ``out.sum()`` gives what a dense gradient of ones gives."""
+    q, k, v, _ = _inputs(5, 2, 4, 2, 70, 70, 16)
+    bshd = [torch.tensor(x.transpose(0, 2, 1, 3), requires_grad=True)
+            for x in (q, k, v)]
+    p_fa_ops.flash_attention_bshd(*bshd, causal).sum().backward()
+    bhsd = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = p_fa_ops.flash_attention(*bhsd, causal)
+    dense = torch.autograd.grad(out, bhsd, torch.ones_like(out),
+                                retain_graph=True)
+    for a, c, g in zip(bshd, bhsd, dense):
+        assert a.grad.stride() == a.stride()
+        torch.testing.assert_close(a.grad.transpose(1, 2), g, **TOL)
+    out.sum().backward()
+    for c, g in zip(bhsd, dense):
+        torch.testing.assert_close(c.grad, g, rtol=0, atol=0)
+
+
+def test_remat_hands_the_recomputed_lse_to_the_backward():
+    """Under torch.utils.checkpoint (the model's remat), the recomputed
+    forward saves its own out and lse: the gradients equal the run
+    without remat bit for bit, and each of the forward and backward ops
+    runs as often as the recompute says (forward twice, backward once)."""
+    from torch.utils.checkpoint import checkpoint
+    q, k, v, w = _inputs(9, 1, 4, 2, 60, 60, 16)
+    wt = torch.as_tensor(w)
+
+    def block(q, k, v):
+        return p_fa_ops.flash_attention(q * 1.5, k, v, True) * wt
+
+    grads = []
+    for remat in (False, True):
+        ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+        y = checkpoint(block, *ts, use_reentrant=False) if remat else \
+            block(*ts)
+        y.sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, c in zip(*grads):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    with torch.profiler.profile() as prof:
+        ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+        checkpoint(block, *ts, use_reentrant=False).sum().backward()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith("repro_torch::")}
+    assert calls == {"repro_torch::flash_attention_fwd": 2,
+                     "repro_torch::flash_attention_bwd": 1}, calls

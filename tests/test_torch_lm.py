@@ -129,8 +129,9 @@ def test_flash_attention_causal_q_longer_than_ragged_kv():
 
 
 def test_flash_attention_grad_matches_reference():
-    """The autograd.Function's backward (through attention_ref) against
-    jax.grad of the reference's custom-VJP op."""
+    """The op's backward (on CPU tensors attention_bwd_ref, from the
+    forward's saved out and lse) against jax.grad of the reference's
+    custom-VJP op."""
     rng = np.random.default_rng(7)
     q = rng.standard_normal((1, 4, 72, 16)).astype(np.float32)
     k = rng.standard_normal((1, 2, 72, 16)).astype(np.float32)
