@@ -59,11 +59,13 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   attention shapes, with SDPA's time beside it (and pixtral's in
   float32, on the SIMT variant), and the registers and shared memory of
   its tensor-core variant at each head dim it is built for; K5's
-  backward (its own row) at the train shape, in bf16 and float32, and
-  at each family's shape: one launch of its variant, two calls
-  bit-equal, against the float32 pullback (bf16: each gradient's rms
-  distance at most 1.25x SDPA backward's; float32: 1e-4 relative rms),
-  timed beside the plain version and SDPA's backward.
+  backward (two rows: ``wgmma`` in bf16 and ``tf32x3`` in float32, at
+  the train shape; also at each family's shape): one launch of its
+  variant, two calls bit-equal, against the float32 pullback (bf16: each
+  gradient's rms distance at most 1.25x SDPA backward's; float32: 1e-4
+  relative rms, SDPA's recorded beside it), timed beside the plain
+  version and SDPA's backward, at the train shape each of a call's
+  kernels traced, with both variants' registers and shared memory.
 * ``search``: a profile trained at the full grid (the 14 Level-2
   micro-benchmarks on the host, ``repro_torch.core.training.
   train_profile``, every fit on the card), every step of every fit
@@ -104,7 +106,9 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   float32 plain gradient than 1.25x the bf16 plain path's), and one step
   counted and traced (K5 56 times, forward and remat recompute, and its
   backward 28 times, every launch its tensor-core variant; the trace
-  holds the backward's three kernels a launch).  Records the step's
+  holds the backward's kernels a launch, four where its dK/dV pass is
+  split; the float32 first step's 28 backward launches all tf32x3).
+  Records the step's
   host seconds
   (median of steps 2-8), tokens/s, device ms, launches, K5's share, the
   card's busy share, the step's share of the bf16 peak and peak memory.
@@ -177,6 +181,9 @@ HBM_BYTES_PER_S = H100_SXM.hbm_bw
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = H100_SXM.peak_flops_bf16
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+#: dense TF32 tensor cores (NVIDIA data sheet): the tf32x3 backward runs
+#: three tf32 products for each float32 one
+TF32_TC_OPS_PER_S = 495e12
 PEAKS = {"fp32": FP32_OPS_PER_S, "bf16_tensor": BF16_TC_OPS_PER_S,
          "int32": INT32_OPS_PER_S}
 
@@ -1909,10 +1916,10 @@ def phase_families(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 #: 4 sequences of 2,048 tokens a step, 8 steps, a checkpoint every 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 8, 4
-#: the first step, float32 compute, flash (K5's SIMT variant) against the
-#: plain chunked path: loss and grad_norm within this relative distance
-#: (the paths differ only in the attention forward's float32 summation
-#: order, ~1e-6 relative an output)
+#: the first step, float32 compute, flash (K5's SIMT forward and tf32x3
+#: backward) against the plain chunked path: loss and grad_norm within
+#: this relative distance (the paths differ only in attention's summation
+#: order and the backward's 3xTF32 products, ~1e-6 relative an output)
 TRAIN_F32_RTOL = 1e-4
 #: bf16 compute: the flash step's gradient no further (rms) from the
 #: float32 plain gradient than this times the bf16 plain step's is (the
@@ -1948,11 +1955,14 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
 
 def _first_step(cfg, state, batch, checks: Checks) -> dict:
     """The run's first step against the plain attention path, on the same
-    state and batch: float32 compute (flash's SIMT variant vs the chunked
-    path) loss and grad_norm within TRAIN_F32_RTOL; bf16 compute (the
-    run's own path, K5's tensor-core variant) by the witness."""
+    state and batch: float32 compute (flash's SIMT forward and tf32x3
+    backward vs the chunked path) loss and grad_norm within
+    TRAIN_F32_RTOL; bf16 compute (the run's own path, K5's tensor-core
+    variant) by the witness.  The float32 flash step's K5 launches are
+    counted (the tf32x3 backward's path)."""
     import dataclasses
     import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build
     from repro_torch.train.loop import loss_and_grads
     out, truth = {}, None
@@ -1960,9 +1970,13 @@ def _first_step(cfg, state, batch, checks: Checks) -> dict:
         for impl in ("xla", "flash"):
             model = build(dataclasses.replace(cfg, attn_impl=impl,
                                               compute_dtype=dtype))
+            torch.cuda.synchronize()
+            reset_launch_counts()
             t0 = time.perf_counter()
             metrics, grads = loss_and_grads(state.params, batch, model)
             torch.cuda.synchronize()
+            if dtype == "float32" and impl == "flash":
+                out["float32_flash_launches"] = _k5_moved({}, launch_counts())
             row = {"loss": float(metrics["loss"]),
                    "grad_norm": _grad_norm(grads),
                    "s": time.perf_counter() - t0}
@@ -1973,6 +1987,11 @@ def _first_step(cfg, state, batch, checks: Checks) -> dict:
             out[f"{dtype}_{impl}"] = row
             del grads
     torch.cuda.synchronize()
+    moved = out["float32_flash_launches"]
+    checks.expect(moved.get("flash_attention_bwd") == cfg.n_layers and
+                  moved.get("flash_attention_bwd_tf32x3") == cfg.n_layers,
+                  f"train first step, float32 flash: K5 backward launches "
+                  f"{moved}, expected {cfg.n_layers}, all tf32x3")
     f, p = out["float32_flash"], out["float32_xla"]
     for key in ("loss", "grad_norm"):
         rel = abs(f[key] - p[key]) / abs(p[key])
@@ -1994,15 +2013,28 @@ def _bwd_launches_ok(counted: dict, want: int) -> bool:
     """K5's backward launched ``want`` times, every one on wgmma."""
     return (counted.get("flash_attention_bwd") == want and
             counted.get("flash_attention_bwd_wgmma") == want and
-            counted.get("flash_attention_bwd_simt", 0) == 0)
+            counted.get("flash_attention_bwd_tf32x3", 0) == 0)
+
+
+def _train_bwd_kernels(cfg) -> int:
+    """Kernels one K5 backward launches at the train shape: delta, dK/dV
+    and dQ, and the partials' sum where the dK/dV pass is split."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    splits = kernel.dkv_splits(
+        TRAIN_BATCH, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+        TRAIN_SEQ, TRAIN_SEQ, cfg.resolved_head_dim,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return 3 + (splits > 1)
 
 
 def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
     """One whole train step, counted and traced: K5's launches by the
     counters and by the kernels the trace holds (every forward the
     tensor-core variant, 2 a layer with the remat recompute; every
-    backward the tensor-core variant, one a layer, its three kernels),
-    the step's device time and the forward's and backward's shares."""
+    backward the tensor-core variant, one a layer, its three kernels and
+    the partials' sum where the dK/dV pass is split), the step's device
+    time and the forward's and backward's shares."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build
@@ -2024,9 +2056,10 @@ def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
     each = prof.pop("flash_ms_each")
     traced = prof["flash_launches_per_step"]
     # the trace's names: tc::flash_wgmma_kernel<D> (forward);
-    # simt::flash_bwd_prep_kernel, tc::flash_bwd_dkv_kernel<D> and
+    # simt::flash_bwd_prep_kernel, tc::flash_bwd_dkv_kernel<D>,
+    # simt::flash_bwd_reduce_kernel<T> (a split dK/dV pass) and
     # tc::flash_bwd_dq_kernel<D> (backward); simt::flash_kernel and
-    # simt::flash_bwd_kernel, the SIMT variants
+    # tf32x3::flash_bwd_{dkv,dq}_kernel, the other variants
     names = prof.pop("flash_kernels")
     by_ms = prof.pop("flash_ms_by_kernel")
 
@@ -2037,13 +2070,16 @@ def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
         return sum(t for name, t in by_ms.items() if part in name)
 
     wgmma = count("flash_wgmma")
+    per_bwd = _train_bwd_kernels(cfg)
     bwd = {part: count(f"flash_bwd_{part}_kernel")
-           for part in ("prep", "dkv", "dq")}
-    checks.expect(traced == want + 3 * layers and wgmma == want and
-                  all(n == layers for n in bwd.values()),
+           for part in ("prep", "dkv", "reduce", "dq")}
+    checks.expect(traced == want + per_bwd * layers and wgmma == want and
+                  all(n == (layers if part != "reduce" or per_bwd == 4
+                            else 0) for part, n in bwd.items()),
                   f"train step: the trace holds {traced} K5 kernels, "
                   f"{wgmma} of them flash_wgmma, backward {bwd}, expected "
-                  f"{want} and {layers} of each: {names}")
+                  f"{want} and {layers} of each ({per_bwd} a backward): "
+                  f"{names}")
     device = prof["device_ms_per_step"]
     return {"k5_counted": counted, "k5_traced": traced,
             "k5_traced_wgmma": wgmma, "k5_traced_bwd": bwd,
@@ -2053,6 +2089,9 @@ def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
             "k5_share_of_device": prof["flash_ms_per_step"] / device,
             "k5_fwd_ms_per_step": ms("flash_wgmma"),
             "k5_bwd_ms_per_step": ms("flash_bwd"),
+            "k5_bwd_ms_per_step_by_kernel": {
+                part: ms(f"flash_bwd_{part}_kernel")
+                for part in ("prep", "dkv", "reduce", "dq")},
             "k5_bwd_share_of_device": ms("flash_bwd") / device,
             "k5_bwd_ms_each": ms("flash_bwd") / layers,
             "profile_step": prof}
@@ -2155,7 +2194,7 @@ def phase_train(seed: int) -> dict:
             "flash_attention_simt": 0,
             "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_wgmma": cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd_simt": 0}
+            "flash_attention_bwd_tf32x3": 0}
     checks.expect(out["run_launches"] == want,
                   f"train run: K5 launches {out['run_launches']}, "
                   f"expected {want}")
@@ -3220,7 +3259,7 @@ def _k5_inputs(gen, b, h, kh, sq, skv, d, dtype):
 
 #: K5 at each family's shapes (the full configs): name, B, H, KH, Sq,
 #: Skv, D, causal, dtype.  bf16 is the served path's; pixtral's float32
-#: row is the float32-compute witness's, and holds the SIMT variant at D 160
+#: row is the float32-compute witness's, and holds the SIMT forward at D 160
 K5_FAMILY_SHAPES = [
     ("granite-moe prefill", 4, 16, 8, 2048, 2048, 64, True, "bfloat16"),
     ("zamba2 shared attention", 4, 32, 32, 2048, 2048, 64, True, "bfloat16"),
@@ -3292,8 +3331,8 @@ def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
 
 
 #: K5's backward: the train step's shape (bf16, and float32 as the first
-#: step's float32 check runs it, on the SIMT variant), then every family's
-#: K5 shape; the first row is the kernels line's
+#: step's float32 check runs it, on the tf32x3 variant), then every
+#: family's K5 shape; the first two rows are the kernels line's
 K5_BWD_SHAPES = [
     ("qwen2-1.5b train", TRAIN_BATCH, 12, 2, TRAIN_SEQ, TRAIN_SEQ, 128, True,
      "bfloat16"),
@@ -3321,12 +3360,17 @@ def k5_backward(gen, shapes=K5_BWD_SHAPES) -> list:
     (``attention_bwd_ref`` on the inputs in float32 with the float32
     ``attention_ref`` output and ``attention_lse_ref``): bf16 by the
     witness against SDPA backward (``enable_gqa``) on the same inputs and
-    gradient, float32 within K5_BWD_F32_RMS relative rms.  Timed beside
-    the plain version on the card (``attention_bwd_ref`` on the same
-    tensors) and SDPA's backward on a retained graph.  Bound: the
-    function's five products, 10 B H D x the kept pairs, at the peak of
-    the inputs' type (bf16 tensor cores or float32), or the bytes (q, k,
-    v, out, dout and lse read once, dq, dk and dv written once)."""
+    gradient, float32 within K5_BWD_F32_RMS relative rms (SDPA's float32
+    distance recorded beside it).  Timed beside the plain version on the
+    card (``attention_bwd_ref`` on the same tensors) and SDPA's backward
+    on a retained graph; at the train shape each of the call's kernels
+    (delta, dK/dV, the partials' sum where the pass is split, dQ) timed
+    by a trace of BWD_TRACE_CALLS calls.  Bound: the function's five
+    products, 10 B H D x the kept pairs, at the peak of the inputs' type
+    (bf16 tensor cores or float32), or the bytes (q, k, v, out, dout and
+    lse read once, dq, dk and dv written once); float32 rows also give
+    the five products at 3x the dense TF32 rate (the tf32x3 kernel's own
+    arithmetic)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts
@@ -3340,7 +3384,7 @@ def k5_backward(gen, shapes=K5_BWD_SHAPES) -> list:
         q, k, v = _k5_inputs(gen, b, h, kh, sq, skv, d, dtype)
         g = torch.randn((b, sq, h, d), generator=gen,
                         device=DEVICE).to(dtype).transpose(1, 2)
-        kind = kernel.variant(dtype, d)
+        kind = kernel.bwd_variant(dtype, d)
         out, lse = kernel.flash_attention_kernel(q, k, v, causal)
         before = launch_counts()
         got = kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, causal)
@@ -3382,6 +3426,15 @@ def k5_backward(gen, shapes=K5_BWD_SHAPES) -> list:
             q, k, v, out, lse, g, causal), reps=10)
         plain_ms = timed_ms(lambda: attention_bwd_ref(
             q, k, v, out, lse, g, causal), reps=3, warmup=1)
+        by_kernel = {}
+        if name.startswith("qwen2-1.5b train"):
+            prof = _profile(lambda: kernel.flash_attention_bwd_kernel(
+                q, k, v, out, lse, g, causal), BWD_TRACE_CALLS,
+                watch="flash_bwd")
+            by_kernel = {
+                "ms": prof["flash_bwd_ms_by_kernel"],
+                "launches": {n: c / BWD_TRACE_CALLS for n, c in
+                             prof["flash_bwd_kernels"].items()}}
         pairs = _causal_pairs(sq, skv) if causal else sq * skv
         n_ops = 10 * b * h * d * pairs
         n_bytes = q.element_size() * 4 * (q.numel() + k.numel()) + \
@@ -3399,11 +3452,50 @@ def k5_backward(gen, shapes=K5_BWD_SHAPES) -> list:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "ops_peak": peak, "ops": n_ops, "bytes": n_bytes,
-            "tflops": n_ops / (ms * 1e-3) / 1e12})
+            "tflops": n_ops / (ms * 1e-3) / 1e12,
+            "kernels": by_kernel})
+        if kind == "tf32x3":
+            rows[-1]["bound_tf32x3_ms"] = max(
+                t_bytes, 3 * n_ops / TF32_TC_OPS_PER_S * 1e3)
+            rows[-1]["tf32x3_info"] = kernel.bwd_tf32x3_info(d)
         log(f"K5 backward {name}: {json.dumps(rows[-1])}")
         del q, k, v, g, out, lse, lib, ref
         _free()
     return rows
+
+
+#: calls of K5's backward the train shape's trace covers
+BWD_TRACE_CALLS = 5
+
+
+def kernel_k5_backward_tf32x3(rows) -> dict:
+    """The kernels line's row of K5's tf32x3 backward, from
+    :func:`k5_backward`'s float32 train-shape row; its launches are the
+    train phase's float32 first step's, filled in after that phase."""
+    from repro_torch.kernels.flash_attention import kernel
+    main = rows[1]
+    assert main["variant"] == "tf32x3", main["variant"]
+    row = _row("K5 flash_attention backward (tf32x3)", "cuda",
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/ops.py:66 (_bwd, the "
+               "custom VJP's backward; XLA's pullback of attention_ref on "
+               "the TPU), float32", 0, main["max_abs_err"], main["ms"],
+               main["plain_ms"], main["bytes"], main["ops"],
+               main["ops_peak"], main["library_ms"],
+               {"shape": f"[{main['b']},12,{main['sq']},128] kv_heads=2 "
+                         f"float32 causal, [B,S,H,D] strides",
+                "variant": main["variant"],
+                "library": "scaled_dot_product_attention backward "
+                           "(is_causal=True, enable_gqa=True), float32",
+                "bound_tf32x3_ms": main["bound_tf32x3_ms"],
+                "tflops": main["tflops"],
+                "grad_rel_rms": main["grad_rel_rms"],
+                "sdpa_grad_rel_rms": main["sdpa_grad_rel_rms"],
+                "kernels": main["kernels"],
+                "tf32x3_info": {str(dd): kernel.bwd_tf32x3_info(dd)
+                                for dd in (64, 128, 160)}})
+    log(f"K5 backward tf32x3_info: {json.dumps(row['tf32x3_info'])}")
+    return row
 
 
 def kernel_k5_backward(rows) -> dict:
@@ -3427,6 +3519,7 @@ def kernel_k5_backward(rows) -> dict:
                 "tflops": main["tflops"],
                 "grad_rel_rms": main["grad_rel_rms"],
                 "sdpa_grad_rel_rms": main["sdpa_grad_rel_rms"],
+                "kernels": main["kernels"],
                 "wgmma_info": {str(dd): kernel.bwd_wgmma_info(dd)
                                for dd in kernel.WGMMA_HEAD_DIMS},
                 "shapes": rows})
@@ -3478,8 +3571,8 @@ def kernel_k5(seed, launches) -> dict:
                          **{f"flash_attention_{o}": 0 for o in
                             kernel.VARIANT_LAUNCHES if o != kind}}, \
             f"K5 {tuple(q.shape)} {q.dtype}: counters moved {moved}"
-    # the gradient: forward and backward on K5 (the SIMT variants),
-    # against autograd of attention_ref
+    # the gradient: forward and backward on K5 (float32: the SIMT forward
+    # and the tf32x3 backward), against autograd of attention_ref
     xs = _k5_inputs(gen, 2, 4, 2, 100, 100, 32, torch.float32)
     w = torch.randn(xs[0].shape, generator=gen, device=DEVICE)
     ga = [x.detach().clone().requires_grad_(True) for x in xs]
@@ -3715,9 +3808,11 @@ def main(argv=None) -> int:
         kernel_k3(data, rng, report["kvstore"]["launches"]),
         kernel_k4(data, rng, report["kvstore"]["launches"]),
         kernel_k5(args.seed, report["lm"]["launches"]),
-        kernel_k5_backward(k5_backward(
-            torch.Generator(device=DEVICE).manual_seed(args.seed + 6))),
     ]
+    bwd_rows = k5_backward(
+        torch.Generator(device=DEVICE).manual_seed(args.seed + 6))
+    kernels += [kernel_k5_backward(bwd_rows),
+                kernel_k5_backward_tf32x3(bwd_rows)]
     report["kernels_phase_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3836,8 +3931,15 @@ def main(argv=None) -> int:
         "launches_per_step": tr["k5_counted"].get("flash_attention_bwd"),
         "traced_kernels_per_step": tr["k5_traced_bwd"],
         "ms_per_step": tr["k5_bwd_ms_per_step"],
+        "ms_per_step_by_kernel": tr["k5_bwd_ms_per_step_by_kernel"],
         "ms_each": tr["k5_bwd_ms_each"],
         "share_of_step_device_time": tr["k5_bwd_share_of_device"]}
+    # the tf32x3 backward: the train phase's float32 first step, 28
+    # launches (the float32-compute check's path)
+    f32 = tr["first_step"]["float32_flash_launches"]
+    kernels[7]["launches"] = f32.get("flash_attention_bwd_tf32x3", 0)
+    kernels[7]["launches_by_path"] = {
+        "qwen2-1.5b train, the float32 first step (flash)": f32}
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

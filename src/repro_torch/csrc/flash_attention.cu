@@ -30,6 +30,7 @@
 //   * flash_attention_launch: float32, or any other D, the SIMT kernel
 //     (namespace simt), whose float32 products hold the float32-compute
 //     path to 1e-5.
+// (The backward's variants, tc and tf32x3, are described below.)
 //
 // --- tc: bf16, D in {64, 128, 160}, on wgmma with TMA-fed K/V tiles ----
 //   * One block of 384 threads owns one (batch * head, 128-row q tile):
@@ -129,6 +130,19 @@
 // atomics, so two calls give bit-equal gradients (the training run's resume
 // check holds the losses bit for bit).
 //
+// The dK/dV pass's grid is B x KH x (Skv / keys a block): at qwen2-1.5b's
+// training shape, [4, 12/2, 2048, 128], 128 blocks of one SM each, one
+// wave on 132 SMs, and under causal the first KV tile walks 16x the q
+// tiles of the last, so the pass lasted as long as its heaviest block with
+// the SMs half idle.  Where the grid is under one wave, the host splits
+// each KV tile's (q head, q tile) steps over `splits` blocks (kernel.py,
+// dkv_splits: the fewest that fill a wave; 2 at that shape, 256 blocks,
+// the heaviest 96 steps of 64 q rows against a mean of ~99 an SM), each
+// writing float32 partials, and a fourth launch
+// (simt::flash_bwd_reduce_kernel) sums them in a fixed order; elsewhere
+// (a full grid) nothing changes.  Blocks are launched heaviest first (the
+// first KV tiles; the dQ pass's last q tiles).
+//
 // --- tc backward: bf16, D in {64, 128, 160}, on wgmma with TMA-fed tiles --
 //   * 256 threads: two consumer warpgroups, no producer warpgroup (thread 0
 //     issues the loads), so ptxas may give a thread 255 registers.
@@ -147,12 +161,17 @@
 //   * P and dS are rounded to bf16 once for their products, as
 //     FlashAttention-2/3 and SDPA's backward do (chip_smoke.py holds the
 //     gradients' rms distance from the float32 pullback to 1.25x SDPA's).
-//   * Streamed tiles flow through a two-stage mbarrier ring; the per-row
-//     lse2 and delta of a q tile ride the same barrier as a 1-D bulk copy.
+//   * Streamed tiles flow through a three-stage mbarrier ring (two in the
+//     dQ pass at D 160, where three do not fit); the per-row lse2 and
+//     delta of a q tile ride the same barrier as a 1-D bulk copy.
 //     Gradients are written in bf16 through dq's, dk's and dv's strides.
-// --- simt backward: float32, or bf16 at any other D ----------------------
-//   The same three passes with scalar float32 FMAs on 32-row tiles (see
-//   simt::flash_bwd_kernel), so the float32 path holds 1e-5.
+// --- tf32x3 backward: float32, or bf16 at any other D --------------------
+//   The same passes with every product on the tensor cores, mma.sync
+//   m16n8k8 on tf32 operands in the 3xTF32 split (hi + lo of each operand,
+//   three products summed in float32), so the float32 path holds 1e-5:
+//   see namespace tf32x3.  What bounds it: the five products at the
+//   float32 peak (67 TFLOP/s, the arithmetic it replaces), and at best the
+//   same at 3x the dense tf32 rate (its own arithmetic).
 //
 // Plain C interface, loaded with ctypes: each launcher returns
 // cudaGetLastError() after its launch (or the error that refused it).
@@ -420,214 +439,647 @@ int prep_launch(const void* out, const void* dout, const float* lse,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The SIMT backward: two kernels of one template after the preprocess.
-// kKV: a block owns kBB keys of one KV head (K and V in shared memory) and
-// walks the q tiles of its group's heads (under causal, from the diagonal
-// on), accumulating dV = P^T dO and dK = scale dS^T Q in registers.  !kKV:
-// a block owns kBB q rows of one head (Q and dO) and walks the KV tiles up
-// to the diagonal, accumulating dQ = scale dS K.  Each step forms the
-// owned x streamed tiles of the scores S and of dP (dO V^T) in registers,
-// P = exp2(S scale log2e - lse2) and dS = P o (dP - delta) into shared
-// memory, then the products.  Each thread owns 2 rows x (2 score columns,
-// D / 16 output columns); every product is a scalar float32 FMA; every sum
-// runs in a fixed order (no atomics), so two calls are bit-equal.
-constexpr int kBB = 32;          // rows of an owned or streamed tile
-constexpr int kBS = kBB + 1;     // row stride of the P and dS tiles
+// The dK/dV pass's split (both backward variants): where the pass would
+// fill less than one wave of the card, the host splits each KV tile's work
+// over `splits` blocks (kernels/flash_attention/kernel.py, dkv_splits).
+// Each writes its float32 partial dK (scaled) and dV to a scratch of
+// [2][splits][B * KH][Skv][D] floats, and this kernel sums the partials in
+// the fixed order 0 .. splits - 1 (no atomics: bit-equal twice) into dk
+// and dv through their strides.
+// One block of kReduceThreads a (KV row, dK or dV): blockIdx.x = b * KH
+// * Skv + key, blockIdx.y = 0 (dK) or 1 (dV).
+constexpr int kReduceThreads = 128;
 
-template <typename T, int JMAX, bool kKV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ delta,
-                 const float* __restrict__ lse2, T* __restrict__ dq,
-                 T* __restrict__ dk, T* __restrict__ dv, int heads,
-                 int kv_heads, int sq, int sq_pad, int skv, int d,
-                 Strides qs, Strides ks, Strides vs, Strides dos,
-                 Strides dqs, Strides dks, Strides dvs, float scale,
-                 float scale_log2, int causal) {
-    extern __shared__ float smem[];
-    const int ds = d + 1;                // row stride of the D-wide tiles
-    float* a1 = smem;                    // owned: K (kKV) or Q, [kBB][ds]
-    float* a2 = a1 + kBB * ds;           // owned: V (kKV) or dO
-    float* b1 = a2 + kBB * ds;           // streamed: Q (kKV) or K
-    float* b2 = b1 + kBB * ds;           // streamed: dO (kKV) or V
-    float* p_tile = b2 + kBB * ds;       // P, [kBB owned][kBS]
-    float* ds_tile = p_tile + kBB * kBS; // dS
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+flash_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                        T* __restrict__ dv, int splits, int kv_heads,
+                        int skv, int d, int64_t n, Strides dks,
+                        Strides dvs) {
+    const bool is_v = blockIdx.y == 1;
+    const int bkv = blockIdx.x / skv, key = blockIdx.x % skv;
+    const int b = bkv / kv_heads, kvh = bkv % kv_heads;
+    const Strides& s = is_v ? dvs : dks;
+    const float* src = part + (is_v ? splits * n : 0) +
+                       static_cast<int64_t>(blockIdx.x) * d;
+    T* dst = (is_v ? dv : dk) + b * s.b + kvh * s.h + key * s.s;
+    for (int c = threadIdx.x; c < d; c += kReduceThreads) {
+        float sum = 0.f;
+        for (int j = 0; j < splits; ++j) sum += src[j * n + c];
+        dst[c] = from_float<T>(sum);
+    }
+}
 
-    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+template <typename T>
+int reduce_launch(const float* part, void* dk, void* dv, int splits,
+                  int batch, int kv_heads, int skv, int d, Strides dks,
+                  Strides dvs, cudaStream_t stream) {
+    const int64_t rows = static_cast<int64_t>(batch) * kv_heads * skv;
+    if (rows > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_reduce_kernel<T><<<dim3(static_cast<unsigned>(rows), 2),
+                                 kReduceThreads, 0, stream>>>(
+        part, static_cast<T*>(dk), static_cast<T*>(dv), splits, kv_heads,
+        skv, d, rows * d, dks, dvs);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace simt
+
+// --- tf32x3 backward: float32, or bf16 at any other D ----------------------
+// Every product on the tensor cores, mma.sync.m16n8k8 with tf32 operands,
+// in the 3xTF32 split (the class of arithmetic PyTorch's float32 SDPA
+// backward runs, CUTLASS's OpMultiplyAddFastF32): an operand x is hi =
+// tf32(x), rounded to 10 mantissa bits (nearest even), and lo = tf32(x -
+// hi); a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi with float32
+// sums.  Each tf32 product is exact in float32, and hi + lo carries x to
+// ~21 bits, so a product loses ~2^-21 of |a b|: the float32 limits hold
+// (tests/test_torch_flash_backward.py emulates this arithmetic on the CPU
+// and holds it to the card tests' 1e-5; one tf32 product misses them by
+// 10-1000x).
+//   * Fragments are read as floats from shared memory and split there.  A
+//     tile row is D zero-padded to a bucket W (a multiple of the mma's k
+//     of 8: 16, 32, 64, 96, 128, 160, 192 or 256), W + 4 floats apart, so
+//     that every fragment load is free of bank conflicts (a stride of 4
+//     mod 8 words puts the 32 lanes on 32 banks for both the row-major A
+//     and B reads and the k-major B reads of the second products).
+//   * The backward's transposes are only a choice of fragment loads.  S^T
+//     = K Q^T, dP^T = V dO^T (dK/dV pass) and S = Q K^T, dP = dO V^T (dQ
+//     pass) take A from the owned rows and B from the streamed tile's rows
+//     (B[k][n] = tile[n][k]).  Their accumulators, P^T and dS^T (or dS),
+//     serve directly as the A fragments of dV += P^T dO, dK += dS^T Q and
+//     dQ += dS K: an accumulator holds columns 2t and 2t + 1 where an A
+//     fragment wants t and t + 4, so the k index of those products is
+//     permuted (k = t is tile row 2t, k = t + 4 row 2t + 1) and B is read
+//     from rows 2t and 2t + 1 to match.  No P or dS goes through shared
+//     memory.
+//   * dK/dV pass: 256 threads, a block owns 128 keys (16 a warp, both sums)
+//     or, at W > 128, 64 keys (warps 2i and 2i + 1 share 16: the even one
+//     sums dV, the odd one dK); dQ pass: a block owns 128 q rows (64 at W
+//     > 128), 16 a warp, heaviest first.  The streamed tiles (32 rows; 16
+//     at W > 192) are double-buffered with cp.async (float32; bf16 is
+//     converted on load, exactly: bf16 is a tf32 value), with a tile's
+//     lse2 and delta beside it.
+//   * The dK/dV pass splits as the tc one does (dkv_splits); every sum in
+//     a fixed order, no atomics.
+namespace tf32x3 {
+
+using simt::Strides;
+using simt::from_float;
+using simt::to_float;
+
+constexpr int kRows = 16;        // rows of a warp's slice (the mma's m)
+constexpr int kKvThreads = 256;
+
+template <int W> struct Shape {  // sizes in floats
+    static constexpr int kLd = W + 4;                  // a tile row
+    static constexpr bool kWide = W > 128;
+    static constexpr int kOwn = kWide ? 64 : 128;      // owned rows a block
+    static constexpr int kStream = W > 192 ? 16 : 32;  // streamed rows
+    static constexpr int kQThreads = kOwn / kRows * 32;
+    static constexpr int kKvStage = 2 * kStream * kLd + 2 * kStream;
+    static constexpr int kKvFloats = 2 * kOwn * kLd + 2 * kKvStage;
+    static constexpr int kQStage = 2 * kStream * kLd;
+    static constexpr int kQFloats = 2 * kOwn * kLd + 2 * kQStage;
+};
+
+// x = hi + lo: hi = x rounded to tf32 (10 mantissa bits, nearest even),
+// lo = x - hi exactly, handed to the tensor cores as it is: they read a
+// tf32 operand's top 19 bits, so lo counts truncated to 10 mantissa bits
+// (an error under 2^-21 |x|, beside 2^-22 |x| for rounding it: the
+// emulation in tests/test_torch_flash_backward.py models exactly this)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    uint32_t u = __float_as_uint(x);
+    u += 0xFFFu + ((u >> 13) & 1u);
+    hi = u & 0xFFFFE000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d[16 x 8] = a[16 x 8] b[8 x 8] + c, tf32 in, float32 out
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2], float c) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "f"(c));
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += the 3xTF32 product, the small terms first.  The three products are
+// summed by the tensor cores from zero and then added to d in float32:
+// the tensor cores round their sums toward zero, so a long sum kept in
+// them (dK and dV run 12,288 q rows at the training shape) drifts by
+// ~2^-23 a step, in one direction; measured on the card, 3.6e-5 relative
+// rms on dK and dV, 16x SDPA's.  Added outside, each step's error is that
+// of one rounded float32 add.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+    float t[4];
+    mma(t, al, bh, 0.f);
+    mma(t, ah, bl);
+    mma(t, ah, bh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+// A fragment of rows r .. r + 15, columns c .. c + 7 of a tile (ld floats
+// a row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+__device__ __forceinline__ void load_a(const float* tile, int ld, int r,
+                                       int c, int g, int t, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+    const float* p = tile + (r + g) * ld + c + t;
+    split(p[0], hi[0], lo[0]);
+    split(p[8 * ld], hi[1], lo[1]);
+    split(p[4], hi[2], lo[2]);
+    split(p[8 * ld + 4], hi[3], lo[3]);
+}
+// B fragment (k x n = 8 x 8) whose (k, n) is tile[n0 + n][k0 + k]: b0
+// (t, g), b1 (t + 4, g)
+__device__ __forceinline__ void load_b_rows(const float* tile, int ld, int n0,
+                                            int k0, int g, int t,
+                                            uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+    const float* p = tile + (n0 + g) * ld + k0 + t;
+    split(p[0], hi[0], lo[0]);
+    split(p[4], hi[1], lo[1]);
+}
+// B fragment whose (k, n) is tile[k0 + perm(k)][n0 + n], perm(t) = 2t and
+// perm(t + 4) = 2t + 1: the k order of an A fragment taken from an
+// accumulator
+__device__ __forceinline__ void load_b_cols(const float* tile, int ld, int k0,
+                                            int n0, int g, int t,
+                                            uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+    const float* p = tile + (k0 + 2 * t) * ld + n0 + g;
+    split(p[0], hi[0], lo[0]);
+    split(p[ld], hi[1], lo[1]);
+}
+// the A fragment of an accumulator tile c (c0 (g, 2t), c1 (g, 2t + 1), c2
+// (g + 8, 2t), c3 (g + 8, 2t + 1)) in the permuted k order
+__device__ __forceinline__ void acc_to_a(const float (&c)[4],
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+    split(c[0], hi[0], lo[0]);
+    split(c[2], hi[1], lo[1]);
+    split(c[1], hi[2], lo[2]);
+    split(c[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+    asm volatile(
+        "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+            static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+        "l"(src), "r"(bytes)
+        : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows lo .. lo + rows - 1 (columns below d) of a [n, d] view with row
+// stride rs into a tile of ld floats a row; rows >= n are zeros.  float32
+// by cp.async (completing on the thread's next commit group), bf16
+// converted on the way.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+                                          int64_t rs, int lo, int rows,
+                                          int n, int d, int warp, int warps,
+                                          int lane) {
+    for (int r = warp; r < rows; r += warps) {
+        const int row = lo + r;
+        const bool in = row < n;
+        const T* s = src + (in ? row * rs : 0);
+        for (int c = lane; c < d; c += 32) {
+            if constexpr (sizeof(T) == 4)
+                cp_async4(dst + r * ld + c, s + c, in ? 4 : 0);
+            else
+                dst[r * ld + c] = in ? to_float(s[c]) : 0.f;
+        }
+    }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kKvThreads, 1)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ lse2, T* __restrict__ dk,
+                     T* __restrict__ dv, float* __restrict__ part,
+                     int splits, int heads, int kv_heads, int sq, int sq_pad,
+                     int skv, int d, Strides qs, Strides ks, Strides vs,
+                     Strides dos, Strides dks, Strides dvs, float scale,
+                     float scale_log2, int causal) {
+    using S = Shape<W>;
+    constexpr int kLd = S::kLd, kOwn = S::kOwn, kBr = S::kStream;
+    constexpr int kNt = kBr / 8, kWt = W / 8;
+    constexpr bool kPair = S::kWide;
+    constexpr int kWarps = kKvThreads / 32;
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    float* k_tile = smem;                         // [kOwn][kLd]
+    float* v_tile = k_tile + kOwn * kLd;
+    float* stages = v_tile + kOwn * kLd;          // Q, dO, lse2, delta
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
     const int group = heads / kv_heads;
-    const int own_lo = blockIdx.x * kBB;
-    const int b = blockIdx.y / (kKV ? kv_heads : heads);
-    const int h_own = kKV ? 0 : blockIdx.y % heads;
-    const int kvh = kKV ? blockIdx.y % kv_heads : h_own / group;
+    const int split_j = blockIdx.x % splits, bkv = blockIdx.x / splits;
+    const int b = bkv / kv_heads, kvh = bkv % kv_heads;
+    const int k_lo = blockIdx.y * kOwn;
+    const int n_q = (sq + kBr - 1) / kBr;
+    // under causal, the q tiles from the one holding row k_lo (row >= key)
+    const int qt0 = causal ? min(k_lo / kBr, n_q) : 0;
+    const int per = n_q - qt0, total = group * per;
+    // this block's share of the (head, q tile) steps: the larger shares
+    // first
+    const int base = total / splits, extra = total % splits;
+    const int t_begin = split_j * base + min(split_j, extra);
+    const int t_end = t_begin + base + (split_j < extra ? 1 : 0);
+
+    for (int i = tid; i < S::kKvFloats / 4; i += kKvThreads)
+        smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    load_rows(k_tile, kLd, k + b * ks.b + kvh * ks.h, ks.s, k_lo, kOwn, skv,
+              d, warp, kWarps, lane);
+    load_rows(v_tile, kLd, v + b * vs.b + kvh * vs.h, vs.s, k_lo, kOwn, skv,
+              d, warp, kWarps, lane);
+    cp_async_commit();
+    auto issue = [&](int t) {
+        float* st = stages + ((t - t_begin) & 1) * S::kKvStage;
+        const int h = kvh * group + t / per, qt = qt0 + t % per;
+        load_rows(st, kLd, q + b * qs.b + h * qs.h, qs.s, qt * kBr, kBr, sq,
+                  d, warp, kWarps, lane);
+        load_rows(st + kBr * kLd, kLd, dout + b * dos.b + h * dos.h, dos.s,
+                  qt * kBr, kBr, sq, d, warp, kWarps, lane);
+        if (tid < 2 * kBr) {
+            const int64_t row = (static_cast<int64_t>(b) * heads + h) *
+                                    sq_pad + qt * kBr + tid % kBr;
+            cp_async4(st + 2 * kBr * kLd + tid,
+                      (tid < kBr ? lse2 : delta) + row, 4);
+        }
+        cp_async_commit();
+    };
+    if (t_begin < t_end) issue(t_begin);
+
+    // this warp's 16 keys: key0 + g and key0 + g + 8 of its fragments
+    const int wr = kPair ? kRows * (warp / 2) : kRows * warp;
+    const int key0 = k_lo + wr;
+    const bool do_v = !kPair || warp % 2 == 0;
+    const bool do_k = !kPair || warp % 2 == 1;
+    constexpr int kAcc = kPair ? 1 : 2;
+    float acc[kAcc][kWt][4];
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+        for (int w = 0; w < kWt; ++w)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[a][w][i] = 0.f;
+    float(&dva)[kWt][4] = acc[0];          // (in pairs one array, dV or
+    float(&dka)[kWt][4] = acc[kAcc - 1];   //  dK by warp)
+
+    for (int t = t_begin; t < t_end; ++t) {
+        if (t + 1 < t_end) {
+            issue(t + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* q_t = stages + ((t - t_begin) & 1) * S::kKvStage;
+        const float* do_t = q_t + kBr * kLd;
+        const float* l2 = do_t + kBr * kLd;
+        const float* dl = l2 + kBr;
+        const int q_lo = (qt0 + t % per) * kBr;
+        // under causal, a q tile wholly above this warp's keys keeps no pair
+        if (!causal || q_lo + kBr - 1 >= key0) {
+            float st[kNt][4], dpt[kNt][4];
+#pragma unroll
+            for (int n = 0; n < kNt; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+            // S^T = K Q^T and dP^T = V dO^T over the W columns
+#pragma unroll 2
+            for (int kk = 0; kk < kWt; ++kk) {
+                uint32_t ah[4], al[4], bh[2], bl[2];
+                load_a(k_tile, kLd, wr, 8 * kk, g, t4, ah, al);
+#pragma unroll
+                for (int n = 0; n < kNt; ++n) {
+                    load_b_rows(q_t, kLd, 8 * n, 8 * kk, g, t4, bh, bl);
+                    mma3(st[n], ah, al, bh, bl);
+                }
+                if (do_k) {
+                    load_a(v_tile, kLd, wr, 8 * kk, g, t4, ah, al);
+#pragma unroll
+                    for (int n = 0; n < kNt; ++n) {
+                        load_b_rows(do_t, kLd, 8 * n, 8 * kk, g, t4, bh, bl);
+                        mma3(dpt[n], ah, al, bh, bl);
+                    }
+                }
+            }
+            // P^T = exp2(S^T scale log2e - lse2[col]) and dS^T = P^T o
+            // (dP^T - delta[col]) in place; keys >= Skv and, under causal,
+            // key > row masked; q rows >= Sq have lse2 = +inf (P = 0)
+#pragma unroll
+            for (int n = 0; n < kNt; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int col = 8 * n + 2 * t4 + (i & 1);
+                    const int key = key0 + g + 8 * (i >> 1);
+                    float p = exp2f(st[n][i] * scale_log2 - l2[col]);
+                    if (key >= skv || (causal && key > q_lo + col)) p = 0.f;
+                    dpt[n][i] = p * (dpt[n][i] - dl[col]);
+                    st[n][i] = p;
+                }
+            // dV += P^T dO and dK += dS^T Q: k = the tile's q rows
+#pragma unroll
+            for (int n = 0; n < kNt; ++n) {
+                uint32_t ah[4], al[4], bh[2], bl[2];
+                if (do_v) {
+                    acc_to_a(st[n], ah, al);
+#pragma unroll
+                    for (int w = 0; w < kWt; ++w) {
+                        load_b_cols(do_t, kLd, 8 * n, 8 * w, g, t4, bh, bl);
+                        mma3(dva[w], ah, al, bh, bl);
+                    }
+                }
+                if (do_k) {
+                    acc_to_a(dpt[n], ah, al);
+#pragma unroll
+                    for (int w = 0; w < kWt; ++w) {
+                        load_b_cols(q_t, kLd, 8 * n, 8 * w, g, t4, bh, bl);
+                        mma3(dka[w], ah, al, bh, bl);
+                    }
+                }
+            }
+        }
+        __syncthreads();   // this stage is read before it is refilled
+    }
+    cp_async_wait<0>();
+
+    // dV and dK = scale dS^T Q: keys below Skv, columns below D; with
+    // splits, this block's float32 partials
+    const int64_t n_part = static_cast<int64_t>(gridDim.x / splits) * skv * d;
+    float* pk = part + (static_cast<int64_t>(split_j) * (gridDim.x / splits) +
+                        bkv) * skv * d;
+    float* pv = pk + splits * n_part;
+#pragma unroll
+    for (int w = 0; w < kWt; ++w)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int key = key0 + g + 8 * (i >> 1);
+            const int c = 8 * w + 2 * t4 + (i & 1);
+            if (key >= skv || c >= d) continue;
+            if (splits > 1) {
+                if (do_v) pv[key * d + c] = dva[w][i];
+                if (do_k) pk[key * d + c] = dka[w][i] * scale;
+            } else {
+                if (do_v)
+                    dv[b * dvs.b + kvh * dvs.h + key * dvs.s + c] =
+                        from_float<T>(dva[w][i]);
+                if (do_k)
+                    dk[b * dks.b + kvh * dks.h + key * dks.s + c] =
+                        from_float<T>(dka[w][i] * scale);
+            }
+        }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(Shape<W>::kQThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ lse2, T* __restrict__ dq,
+                    int heads, int group, int sq, int sq_pad, int skv, int d,
+                    Strides qs, Strides ks, Strides vs, Strides dos,
+                    Strides dqs, float scale, float scale_log2, int causal) {
+    using S = Shape<W>;
+    constexpr int kLd = S::kLd, kOwn = S::kOwn, kBc = S::kStream;
+    constexpr int kNt = kBc / 8, kWt = W / 8;
+    constexpr int kWarps = S::kQThreads / 32;
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    float* q_tile = smem;                         // [kOwn][kLd]
+    float* do_tile = q_tile + kOwn * kLd;
+    float* stages = do_tile + kOwn * kLd;         // K, V
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.x;
+    const int b = bh / heads, h = bh % heads, kvh = h / group;
+    const int q_lo = (gridDim.y - 1 - blockIdx.y) * kOwn;   // heaviest first
+    const int n_kv = (skv + kBc - 1) / kBc;
+    const int total =
+        causal ? min(n_kv, (q_lo + kOwn - 1) / kBc + 1) : n_kv;
     const T* kb = k + b * ks.b + kvh * ks.h;
     const T* vb = v + b * vs.b + kvh * vs.h;
 
-    auto load = [&](float* dst, const T* src, int64_t rs, int lo, int n) {
-        for (int e = tid; e < kBB * d; e += kThreads) {
-            const int r = e / d, c = e - r * d;
-            const int row = lo + r;
-            dst[r * ds + c] = row < n ? to_float(src[row * rs + c]) : 0.f;
-        }
+    for (int i = tid; i < S::kQFloats / 4; i += S::kQThreads)
+        smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    load_rows(q_tile, kLd, q + b * qs.b + h * qs.h, qs.s, q_lo, kOwn, sq, d,
+              warp, kWarps, lane);
+    load_rows(do_tile, kLd, dout + b * dos.b + h * dos.h, dos.s, q_lo, kOwn,
+              sq, d, warp, kWarps, lane);
+    cp_async_commit();
+    auto issue = [&](int t) {
+        float* st = stages + (t & 1) * S::kQStage;
+        load_rows(st, kLd, kb, ks.s, t * kBc, kBc, skv, d, warp, kWarps,
+                  lane);
+        load_rows(st + kBc * kLd, kLd, vb, vs.s, t * kBc, kBc, skv, d, warp,
+                  kWarps, lane);
+        cp_async_commit();
     };
-    if (kKV) {
-        load(a1, kb, ks.s, own_lo, skv);
-        load(a2, vb, vs.s, own_lo, skv);
-    } else {
-        load(a1, q + b * qs.b + h_own * qs.h, qs.s, own_lo, sq);
-        load(a2, dout + b * dos.b + h_own * dos.h, dos.s, own_lo, sq);
+    if (total > 0) issue(0);
+
+    // this warp's rows r0 = q_lo + wr + g and r0 + 8
+    const int wr = kRows * warp;
+    const int r0 = q_lo + wr + g;
+    const int64_t stat = static_cast<int64_t>(bh) * sq_pad;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {   // rows past Sq: P = 0
+        const int row = r0 + 8 * r;
+        l2[r] = row < sq ? lse2[stat + row] : __int_as_float(0x7f800000);
+        dl[r] = row < sq ? delta[stat + row] : 0.f;
     }
+    float dqa[kWt][4];
+#pragma unroll
+    for (int w = 0; w < kWt; ++w)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dqa[w][i] = 0.f;
 
-    // acc1: dK (kKV) or dQ, before the scale; acc2: dV
-    float acc1[2][JMAX], acc2[2][JMAX];
+    for (int t = 0; t < total; ++t) {
+        if (t + 1 < total) {
+            issue(t + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* k_t = stages + (t & 1) * S::kQStage;
+        const float* v_t = k_t + kBc * kLd;
+        const int k_lo = t * kBc;
+        if (!causal || k_lo <= q_lo + wr + kRows - 1) {
+            float sc[kNt][4], dp[kNt][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+            for (int n = 0; n < kNt; ++n)
 #pragma unroll
-        for (int j = 0; j < JMAX; ++j) acc1[i][j] = acc2[i][j] = 0.f;
-
-    const int n_q = (sq + kBB - 1) / kBB, n_kv = (skv + kBB - 1) / kBB;
-    // kKV under causal: the q tiles from the one holding row own_lo (rows
-    // >= key); !kKV: the KV tiles up to the one holding the last row
-    const int first = kKV && causal ? min(own_lo / kBB, n_q) : 0;
-    const int n_stream =
-        kKV ? n_q - first
-            : (causal ? min(n_kv, (own_lo + kBB - 1) / kBB + 1) : n_kv);
-    for (int g = 0; g < (kKV ? group : 1); ++g) {
-        const int h = kKV ? kvh * group + g : h_own;
-        const int64_t stat = (static_cast<int64_t>(b) * heads + h) * sq_pad;
-        for (int t = 0; t < n_stream; ++t) {
-            const int lo = (first + t) * kBB;
-            __syncthreads();             // the last step's tiles are read
-            if (kKV) {
-                load(b1, q + b * qs.b + h * qs.h, qs.s, lo, sq);
-                load(b2, dout + b * dos.b + h * dos.h, dos.s, lo, sq);
-            } else {
-                load(b1, kb, ks.s, lo, skv);
-                load(b2, vb, vs.s, lo, skv);
-            }
-            __syncthreads();
-
-            float x[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // S
-            float y[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // dP
-            for (int c = 0; c < d; ++c) {
-                const float a10 = a1[2 * ty * ds + c];
-                const float a11 = a1[(2 * ty + 1) * ds + c];
-                const float a20 = a2[2 * ty * ds + c];
-                const float a21 = a2[(2 * ty + 1) * ds + c];
-                const float b10 = b1[2 * tx * ds + c];
-                const float b11 = b1[(2 * tx + 1) * ds + c];
-                const float b20 = b2[2 * tx * ds + c];
-                const float b21 = b2[(2 * tx + 1) * ds + c];
-                x[0][0] += a10 * b10; x[0][1] += a10 * b11;
-                x[1][0] += a11 * b10; x[1][1] += a11 * b11;
-                y[0][0] += a20 * b20; y[0][1] += a20 * b21;
-                y[1][0] += a21 * b20; y[1][1] += a21 * b21;
-            }
+                for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+            // S = Q K^T and dP = dO V^T over the W columns
+#pragma unroll 2
+            for (int kk = 0; kk < kWt; ++kk) {
+                uint32_t ah[4], al[4], bh2[2], bl[2];
+                load_a(q_tile, kLd, wr, 8 * kk, g, t4, ah, al);
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    const int oi = own_lo + 2 * ty + i, sj = lo + 2 * tx + j;
-                    const int row = kKV ? sj : oi, key = kKV ? oi : sj;
-                    const bool keep = row < sq && key < skv &&
-                                      (!causal || key <= row);
-                    float p = 0.f, dsv = 0.f;
-                    if (keep) {
-                        p = exp2f(x[i][j] * scale_log2 - lse2[stat + row]);
-                        dsv = p * (y[i][j] - delta[stat + row]);
-                    }
-                    p_tile[(2 * ty + i) * kBS + 2 * tx + j] = p;
-                    ds_tile[(2 * ty + i) * kBS + 2 * tx + j] = dsv;
+                for (int n = 0; n < kNt; ++n) {
+                    load_b_rows(k_t, kLd, 8 * n, 8 * kk, g, t4, bh2, bl);
+                    mma3(sc[n], ah, al, bh2, bl);
                 }
-            __syncthreads();
-
-            for (int j = 0; j < kBB; ++j) {
-                const float s0 = ds_tile[2 * ty * kBS + j];
-                const float s1 = ds_tile[(2 * ty + 1) * kBS + j];
-                const float p0 = p_tile[2 * ty * kBS + j];
-                const float p1 = p_tile[(2 * ty + 1) * kBS + j];
+                load_a(do_tile, kLd, wr, 8 * kk, g, t4, ah, al);
 #pragma unroll
-                for (int jj = 0; jj < JMAX; ++jj) {
-                    const int c = tx + 16 * jj;
-                    if (c >= d) continue;
-                    const float u = b1[j * ds + c];
-                    acc1[0][jj] += s0 * u;
-                    acc1[1][jj] += s1 * u;
-                    if (kKV) {
-                        const float w = b2[j * ds + c];
-                        acc2[0][jj] += p0 * w;
-                        acc2[1][jj] += p1 * w;
-                    }
+                for (int n = 0; n < kNt; ++n) {
+                    load_b_rows(v_t, kLd, 8 * n, 8 * kk, g, t4, bh2, bl);
+                    mma3(dp[n], ah, al, bh2, bl);
+                }
+            }
+            // dS = P o (dP - delta) in place, P = exp2(S scale log2e -
+            // lse2), masked as in the dK/dV pass
+#pragma unroll
+            for (int n = 0; n < kNt; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int r = i >> 1;
+                    const int key = k_lo + 8 * n + 2 * t4 + (i & 1);
+                    float p = exp2f(sc[n][i] * scale_log2 - l2[r]);
+                    if (key >= skv || (causal && key > r0 + 8 * r)) p = 0.f;
+                    dp[n][i] = p * (dp[n][i] - dl[r]);
+                }
+            // dQ += dS K: k = the tile's keys
+#pragma unroll
+            for (int n = 0; n < kNt; ++n) {
+                uint32_t ah[4], al[4], bh2[2], bl[2];
+                acc_to_a(dp[n], ah, al);
+#pragma unroll
+                for (int w = 0; w < kWt; ++w) {
+                    load_b_cols(k_t, kLd, 8 * n, 8 * w, g, t4, bh2, bl);
+                    mma3(dqa[w], ah, al, bh2, bl);
                 }
             }
         }
+        __syncthreads();   // this stage is read before it is refilled
     }
+    cp_async_wait<0>();
 
+    // dQ = scale dS K through dq's strides: rows below Sq, columns below D
+    T* dqb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int oi = own_lo + 2 * ty + i;
-        if (oi >= (kKV ? skv : sq)) continue;
+    for (int w = 0; w < kWt; ++w)
 #pragma unroll
-        for (int jj = 0; jj < JMAX; ++jj) {
-            const int c = tx + 16 * jj;
-            if (c >= d) continue;
-            if (kKV) {
-                dk[b * dks.b + kvh * dks.h + oi * dks.s + c] =
-                    from_float<T>(acc1[i][jj] * scale);
-                dv[b * dvs.b + kvh * dvs.h + oi * dvs.s + c] =
-                    from_float<T>(acc2[i][jj]);
-            } else {
-                dq[b * dqs.b + h_own * dqs.h + oi * dqs.s + c] =
-                    from_float<T>(acc1[i][jj] * scale);
-            }
+        for (int i = 0; i < 4; ++i) {
+            const int row = r0 + 8 * (i >> 1);
+            const int c = 8 * w + 2 * t4 + (i & 1);
+            if (row < sq && c < d)
+                dqb[row * dqs.s + c] = from_float<T>(dqa[w][i] * scale);
         }
-    }
 }
 
 // strides: 24 int64, the (b, h, s) element strides of q, k, v, dout, out,
 // dq, dk and dv in that order.  scratch: 2 x B x H x sq_pad floats (delta,
-// then lse2).
-template <typename T, int JMAX>
+// then lse2); part: with splits > 1, 2 x splits x B x KH x Skv x D floats.
+template <typename T, int W>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const float* lse, const void* dout, void* dq, void* dk,
-               void* dv, float* scratch, int batch, int heads, int kv_heads,
-               int sq, int skv, int d, const int64_t* st, float scale,
-               int causal, cudaStream_t stream) {
+               void* dv, float* scratch, float* part, int splits, int batch,
+               int heads, int kv_heads, int sq, int skv, int d,
+               const int64_t* st, float scale, int causal,
+               cudaStream_t stream) {
+    using S = Shape<W>;
     const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
         vs{st[6], st[7], st[8]}, dos{st[9], st[10], st[11]},
         os{st[12], st[13], st[14]}, dqs{st[15], st[16], st[17]},
         dks{st[18], st[19], st[20]}, dvs{st[21], st[22], st[23]};
-    const int sq_pad = (sq + kPad - 1) / kPad * kPad;
+    const int sq_pad = (sq + simt::kPad - 1) / simt::kPad * simt::kPad;
     float* delta = scratch;
     float* lse2 = scratch + static_cast<int64_t>(batch) * heads * sq_pad;
-    int err = prep_launch<T>(out, dout, lse, delta, lse2, batch, heads, sq,
-                             d, os, dos, stream);
+    int err = simt::prep_launch<T>(out, dout, lse, delta, lse2, batch, heads,
+                                   sq, d, os, dos, stream);
     if (err != 0) return err;
-    const size_t smem = sizeof(float) * (4 * kBB * (d + 1) + 2 * kBB * kBS);
     const float scale_log2 = scale * 1.4426950408889634f;
-    for (int pass = 0; pass < 2; ++pass) {
-        auto kernel = pass == 0 ? flash_bwd_kernel<T, JMAX, true>
-                                : flash_bwd_kernel<T, JMAX, false>;
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-        const dim3 grid = pass == 0
-                              ? dim3((skv + kBB - 1) / kBB, batch * kv_heads)
-                              : dim3((sq + kBB - 1) / kBB, batch * heads);
-        kernel<<<grid, kThreads, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const T*>(dout), delta,
-            lse2, static_cast<T*>(dq), static_cast<T*>(dk),
-            static_cast<T*>(dv), heads, kv_heads, sq, sq_pad, skv, d, qs, ks,
-            vs, dos, dqs, dks, dvs, scale, scale_log2, causal);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return static_cast<int>(e);
+
+    auto dkv = flash_bwd_dkv_kernel<T, W>;
+    const int kv_smem = static_cast<int>(sizeof(float)) * S::kKvFloats;
+    cudaError_t e = cudaFuncSetAttribute(
+        dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dkv<<<dim3(splits * batch * kv_heads, (skv + S::kOwn - 1) / S::kOwn),
+          kKvThreads, kv_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), delta, lse2,
+        static_cast<T*>(dk), static_cast<T*>(dv), part, splits, heads,
+        kv_heads, sq, sq_pad, skv, d, qs, ks, vs, dos, dks, dvs, scale,
+        scale_log2, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (splits > 1) {
+        err = simt::reduce_launch<T>(part, dk, dv, splits, batch, kv_heads,
+                                     skv, d, dks, dvs, stream);
+        if (err != 0) return err;
     }
-    return 0;
+
+    auto dqk = flash_bwd_dq_kernel<T, W>;
+    const int q_smem = static_cast<int>(sizeof(float)) * S::kQFloats;
+    e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dqk<<<dim3(batch * heads, (sq + S::kOwn - 1) / S::kOwn), S::kQThreads,
+          q_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), delta, lse2,
+        static_cast<T*>(dq), heads, heads / kv_heads, sq, sq_pad, skv, d, qs,
+        ks, vs, dos, dqs, scale, scale_log2, causal);
+    return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace simt
+template <int W> int info(int which, int* regs, int* smem) {
+    cudaFuncAttributes attr;
+    const cudaError_t err =
+        which == 0
+            ? cudaFuncGetAttributes(&attr, flash_bwd_dkv_kernel<float, W>)
+            : cudaFuncGetAttributes(&attr, flash_bwd_dq_kernel<float, W>);
+    *regs = attr.numRegs;
+    *smem = static_cast<int>(sizeof(float)) *
+            (which == 0 ? Shape<W>::kKvFloats : Shape<W>::kQFloats);
+    return static_cast<int>(err);
+}
+
+// D's bucket: the W the kernels for head dim d are built at
+__host__ __device__ constexpr int bucket(int d) {
+    return d <= 16    ? 16
+           : d <= 32  ? 32
+           : d <= 64  ? 64
+           : d <= 96  ? 96
+           : d <= 128 ? 128
+           : d <= 160 ? 160
+           : d <= 192 ? 192
+                      : 256;
+}
+
+}  // namespace tf32x3
 
 namespace tc {
 
@@ -1190,10 +1642,12 @@ template <int D> int info(int* regs, int* smem) {
 // two consumer warpgroups and no producer warpgroup, so that ptxas may give
 // a thread up to 255 registers (a 384-thread launch caps it at 168, which
 // dK and dV's accumulators alone would fill).  Thread 0 issues every TMA
-// load into a ring of kBwdStages stages, each with a full and an empty
-// mbarrier, refilling a stage once every thread has released it.
+// load into a ring of stages (three where they fit), each with a full and
+// an empty mbarrier.  With three, thread 0 refills the stage of the tile
+// before the one just computed, which both warpgroups have released by
+// then in all but the rarest case, so warpgroup 0's first warp does not
+// wait for warpgroup 1 each tile; with two, the stage just computed.
 constexpr int kBwdThreads = 256;
-constexpr int kBwdStages = 2;
 constexpr int kBwdRows = 64;      // rows of a streamed tile (q or keys)
 
 template <int D> struct BwdLayout {   // byte offsets in dynamic shared memory
@@ -1211,17 +1665,34 @@ template <int D> struct BwdLayout {   // byte offsets in dynamic shared memory
     static constexpr int kKvV = kKeys * kRow;
     static constexpr int kKvStage = 2 * kKeys * kRow;
     static constexpr int kKvStageBytes = 2 * kBwdRows * kRow;
-    static constexpr int kKvStats = kKvStage + kBwdStages * kKvStageBytes;
-    static constexpr int kKvBar = kKvStats + kBwdStages * 2 * kBwdRows * 4;
-    static constexpr int kKvAlloc = kKvBar + 8 * (1 + 2 * kBwdStages) + 1024;
-    // dQ pass: Q and dO [128, W] once; a stage K and V [64, W]
+    static constexpr int kKvStages = 3;   // 195 KB at D 160
+    static constexpr int kKvStats = kKvStage + kKvStages * kKvStageBytes;
+    static constexpr int kKvBar = kKvStats + kKvStages * 2 * kBwdRows * 4;
+    static constexpr int kKvAlloc = kKvBar + 8 * (1 + 2 * kKvStages) + 1024;
+    // dQ pass: Q and dO [128, W] once; a stage K and V [64, W] (three
+    // stages would take 241 KB at D 160)
     static constexpr int kQRows = 128;
     static constexpr int kQdO = kQRows * kRow;
     static constexpr int kQStage = 2 * kQRows * kRow;
     static constexpr int kQStageBytes = 2 * kBwdRows * kRow;
-    static constexpr int kQBar = kQStage + kBwdStages * kQStageBytes;
-    static constexpr int kQAlloc = kQBar + 8 * (1 + 2 * kBwdStages) + 1024;
+    static constexpr int kQStages = D > 128 ? 2 : 3;
+    static constexpr int kQBar = kQStage + kQStages * kQStageBytes;
+    static constexpr int kQAlloc = kQBar + 8 * (1 + 2 * kQStages) + 1024;
 };
+
+// After tile t of a ring of `stages` over `total` tiles is computed and
+// released: thread 0 waits for the release of the tile `stages - 2`
+// before it and refills that tile's stage with the tile `stages` after
+// that.  (Tiles 0 .. stages - 1 are issued before the loop.)
+template <int kStages, typename Issue>
+__device__ __forceinline__ void refill(int t, int total, uint32_t empty,
+                                       Issue&& issue) {
+    const int r = t - (kStages - 2);
+    if (threadIdx.x == 0 && r >= 0 && r + kStages < total) {
+        mbar_wait(empty + 8 * (r % kStages), (r / kStages) & 1);
+        issue(r + kStages);
+    }
+}
 
 // A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global memory into shared memory at dst, completing on bar.
@@ -1252,6 +1723,20 @@ __device__ __forceinline__ void store_rows(const float (&acc)[N],
     }
 }
 
+// The same rows in float32 into a [rows, D] partial at dst
+template <int D, int N>
+__device__ __forceinline__ void store_partial(const float (&acc)[N],
+                                              float* dst, int row0, int rows,
+                                              int col0, float mul) {
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (row >= rows) continue;
+        *reinterpret_cast<float2*>(dst + row * D + 8 * (i >> 2) + col0) =
+            make_float2(acc[i] * mul, acc[i + 1] * mul);
+    }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1261,28 +1746,36 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ delta,
                      const float* __restrict__ lse2,
                      __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Strides dks,
-                     Strides dvs, int heads, int kv_heads, int sq,
-                     int sq_pad, int skv, float scale_log2, float scale,
-                     int causal) {
+                     __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                     int splits, Strides dks, Strides dvs, int heads,
+                     int kv_heads, int sq, int sq_pad, int skv,
+                     float scale_log2, float scale, int causal) {
     using L = BwdLayout<D>;
     constexpr int kBoxes = L::kBoxes, kWidth = L::kWidth, kKeys = L::kKeys;
     constexpr bool kSplit = L::kSplit;
+    constexpr int kStages = L::kKvStages;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
     const uint8_t* base_ptr = smem_raw + (base - raw);
     const uint32_t kv_full = base + L::kKvBar;
-    const uint32_t full = kv_full + 8, empty = full + 8 * kBwdStages;
+    const uint32_t full = kv_full + 8, empty = full + 8 * kStages;
 
-    const int b = blockIdx.x / kv_heads, kvh = blockIdx.x % kv_heads;
+    // blockIdx.x: the split j of KV head bkv (dkv_splits); blockIdx.y the
+    // KV tile, the heaviest (under causal, the first) launched first
+    const int split_j = blockIdx.x % splits, bkv = blockIdx.x / splits;
+    const int b = bkv / kv_heads, kvh = bkv % kv_heads;
     const int group = heads / kv_heads;
     const int k_lo = blockIdx.y * kKeys;
     const int n_q = (sq + kBwdRows - 1) / kBwdRows;
     // under causal, the q tiles from the one holding row k_lo (row >= key)
     const int qt0 = causal ? min(k_lo / kBwdRows, n_q) : 0;
     const int per = n_q - qt0;
-    const int total = group * per;   // (head of the group, q tile) steps
+    // (head of the group, q tile) steps: this block's share of the group *
+    // per, the larger shares first
+    const int all = group * per;
+    const int t_begin = split_j * (all / splits) + min(split_j, all % splits);
+    const int total = all / splits + (split_j < all % splits ? 1 : 0);
 
     auto q_dst = [&](int s) {        // Q, then dO at + kBwdRows * kRow
         return base + L::kKvStage + s * L::kKvStageBytes;
@@ -1290,9 +1783,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     auto stats = [&](int s) {        // lse2 [64], then delta [64]
         return L::kKvStats + s * 2 * kBwdRows * 4;
     };
-    auto issue = [&](int t) {
-        const int s = t % kBwdStages;
-        const int h = kvh * group + t / per, qt = qt0 + t % per;
+    auto issue = [&](int t) {   // the block's step t
+        const int s = t % kStages;
+        const int h = kvh * group + (t_begin + t) / per;
+        const int qt = qt0 + (t_begin + t) % per;
         const uint32_t bar = full + 8 * s;
         mbar_expect_tx(bar, L::kKvStageBytes + 2 * kBwdRows * 4);
         for (int c = 0; c < kBoxes; ++c) {
@@ -1310,7 +1804,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
     if (threadIdx.x == 0) {
         mbar_init(kv_full, 1);
-        for (int s = 0; s < kBwdStages; ++s) {
+        for (int s = 0; s < kStages; ++s) {
             mbar_init(full + 8 * s, 1);
             mbar_init(empty + 8 * s, kBwdThreads);
         }
@@ -1325,7 +1819,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
             tma_load(base + L::kKvV + c * kKeys * kRowBytes, &tv, kv_full,
                      c * kBox, k_lo, kvh, b);
         }
-        for (int t = 0; t < min(total, kBwdStages); ++t) issue(t);
+        for (int t = 0; t < min(total, kStages); ++t) issue(t);
     }
     __syncwarp();
 
@@ -1353,11 +1847,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
     mbar_wait(kv_full, 0);
     for (int t = 0; t < total; ++t) {
-        const int s = t % kBwdStages;
-        const int q_lo = (qt0 + t % per) * kBwdRows;
+        const int s = t % kStages;
+        const int q_lo = (qt0 + (t_begin + t) % per) * kBwdRows;
         const uint32_t q_tile = q_dst(s);
         const uint32_t do_tile = q_tile + kBwdRows * L::kRow;
-        mbar_wait(full + 8 * s, (t / kBwdStages) & 1);
+        mbar_wait(full + 8 * s, (t / kStages) & 1);
         // under causal, a q tile wholly above this warpgroup's keys keeps
         // no pair
         if (!causal || q_lo + kBwdRows - 1 >= kw_lo) {
@@ -1456,15 +1950,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
             fence_regs(dka);
         }
         mbar_arrive(empty + 8 * s);   // this stage's tiles are read
-        if (threadIdx.x == 0 && t + kBwdStages < total) {
-            mbar_wait(empty + 8 * s, (t / kBwdStages) & 1);
-            issue(t + kBwdStages);
-        }
+        refill<kStages>(t, total, empty, issue);
         __syncwarp();
     }
 
     // dV, and dK = scale dS^T Q, in bf16 through their strides: keys
-    // below Skv, columns below D
+    // below Skv, columns below D; with splits, this block's float32
+    // partials ([2][splits][B * KH][Skv][D], simt::flash_bwd_reduce_kernel)
+    if (splits > 1) {
+        const int64_t n_part =
+            static_cast<int64_t>(gridDim.x / splits) * skv * D;
+        float* pk = part + (static_cast<int64_t>(split_j) *
+                                (gridDim.x / splits) + bkv) * skv * D;
+        if (do_v)
+            store_partial<D>(dva, pk + splits * n_part, key0, skv, col0, 1.f);
+        if (do_k) store_partial<D>(dka, pk, key0, skv, col0, scale);
+        return;
+    }
     if (do_v)
         store_rows<D>(dva, dv + b * dvs.b + kvh * dvs.h, dvs.s, key0, skv,
                       col0, 1.f);
@@ -1487,10 +1989,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     using L = BwdLayout<D>;
     constexpr int kBoxes = L::kBoxes, kWidth = L::kWidth;
     constexpr int kRows = L::kQRows;
+    constexpr int kStages = L::kQStages;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t q_full = base + L::kQBar;
-    const uint32_t full = q_full + 8, empty = full + 8 * kBwdStages;
+    const uint32_t full = q_full + 8, empty = full + 8 * kStages;
 
     const int bh = blockIdx.x;
     const int b = bh / heads, h = bh % heads, kvh = h / group;
@@ -1503,7 +2006,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         return base + L::kQStage + s * L::kQStageBytes;
     };
     auto issue = [&](int t) {
-        const int s = t % kBwdStages;
+        const int s = t % kStages;
         const uint32_t bar = full + 8 * s;
         mbar_expect_tx(bar, L::kQStageBytes);
         for (int c = 0; c < kBoxes; ++c) {
@@ -1517,7 +2020,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
     if (threadIdx.x == 0) {
         mbar_init(q_full, 1);
-        for (int s = 0; s < kBwdStages; ++s) {
+        for (int s = 0; s < kStages; ++s) {
             mbar_init(full + 8 * s, 1);
             mbar_init(empty + 8 * s, kBwdThreads);
         }
@@ -1532,7 +2035,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
             tma_load(base + L::kQdO + c * kRows * kRowBytes, &tdo, q_full,
                      c * kBox, q_lo, h, b);
         }
-        for (int t = 0; t < min(total, kBwdStages); ++t) issue(t);
+        for (int t = 0; t < min(total, kStages); ++t) issue(t);
     }
     __syncwarp();
 
@@ -1560,11 +2063,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
     mbar_wait(q_full, 0);
     for (int t = 0; t < total; ++t) {
-        const int s = t % kBwdStages;
+        const int s = t % kStages;
         const int k_lo = t * kBwdRows;
         const uint32_t k_tile = kv_dst(s);
         const uint32_t v_tile = k_tile + kBwdRows * L::kRow;
-        mbar_wait(full + 8 * s, (t / kBwdStages) & 1);
+        mbar_wait(full + 8 * s, (t / kStages) & 1);
         if (!causal || k_lo <= row_lo + 63) {
             // S = Q K^T and dP = dO V^T: A = the Q / dO rows (K-major), B
             // = the K / V tile (N = 64 keys, K-major)
@@ -1636,10 +2139,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
             fence_regs(dqa);
         }
         mbar_arrive(empty + 8 * s);   // this stage's K and V are read
-        if (threadIdx.x == 0 && t + kBwdStages < total) {
-            mbar_wait(empty + 8 * s, (t / kBwdStages) & 1);
-            issue(t + kBwdStages);
-        }
+        refill<kStages>(t, total, empty, issue);
         __syncwarp();
     }
 
@@ -1648,14 +2148,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                   scale);
 }
 
-// strides as simt::launch_bwd's (q, k, v and dout's TMA-ready); scratch:
-// 2 x B x H x sq_pad floats (delta, then lse2)
+// strides as tf32x3::launch_bwd's (q, k, v and dout's TMA-ready); scratch:
+// 2 x B x H x sq_pad floats (delta, then lse2); part: with splits > 1, 2 x
+// splits x B x KH x Skv x D floats
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const float* lse, const void* dout, void* dq, void* dk,
-               void* dv, float* scratch, int batch, int heads, int kv_heads,
-               int sq, int skv, const int64_t* st, float scale, int causal,
-               cudaStream_t stream) {
+               void* dv, float* scratch, float* part, int splits, int batch,
+               int heads, int kv_heads, int sq, int skv, const int64_t* st,
+               float scale, int causal, cudaStream_t stream) {
     using L = BwdLayout<D>;
     const EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -1694,14 +2195,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
     cudaError_t e = cudaFuncSetAttribute(
         dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kKvAlloc);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dkv<<<dim3(batch * kv_heads, (skv + L::kKeys - 1) / L::kKeys),
+    dkv<<<dim3(splits * batch * kv_heads, (skv + L::kKeys - 1) / L::kKeys),
           kBwdThreads, L::kKvAlloc, stream>>>(
         q64, k_kv, v_kv, do64, delta, lse2,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-        dks, dvs, heads, kv_heads, sq, sq_pad, skv, scale_log2, scale,
-        causal);
+        part, splits, dks, dvs, heads, kv_heads, sq, sq_pad, skv, scale_log2,
+        scale, causal);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (splits > 1) {
+        err = simt::reduce_launch<__nv_bfloat16>(
+            part, dk, dv, splits, batch, kv_heads, skv, D,
+            simt::Strides{dks.b, dks.h, dks.s},
+            simt::Strides{dvs.b, dvs.h, dvs.s}, stream);
+        if (err != 0) return err;
+    }
 
     auto dqk = flash_bwd_dq_kernel<D>;
     e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1794,43 +2302,67 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
     }
 }
 
-// The backward, three launches (delta and lse2, dK/dV, dQ): dq, dk and dv
-// of the forward whose out and lse are given, from the output gradient
-// dout (q's shape and dtype).  strides: 24 int64, the (b, h, s) element
-// strides of q, k, v, dout, out, dq, dk and dv in that order.  scratch: 2 x
-// B x H x sq_pad floats, sq_pad = Sq rounded up to 64.  dtype as
-// flash_attention_launch: float32, or bf16 at any D (SIMT).
+// The backward, three launches (delta and lse2, dK/dV, dQ), four with
+// splits > 1 (the partials' sum after dK/dV): dq, dk and dv of the forward
+// whose out and lse are given, from the output gradient dout (q's shape
+// and dtype).  strides: 24 int64, the (b, h, s) element strides of q, k,
+// v, dout, out, dq, dk and dv in that order.  scratch: 2 x B x H x sq_pad
+// floats, sq_pad = Sq rounded up to 64; part: with splits > 1, 2 x splits
+// x B x KH x Skv x D floats (else unused).  dtype as
+// flash_attention_launch: float32, or bf16 at any D (tf32x3).
+template <typename T>
+int tf32x3_dispatch(const void* q, const void* k, const void* v,
+                    const void* out, const float* lse, const void* dout,
+                    void* dq, void* dk, void* dv, float* scratch, float* part,
+                    int splits, int batch, int heads, int kv_heads, int sq,
+                    int skv, int d, const int64_t* st, float scale,
+                    int causal, cudaStream_t s) {
+#define FA_TF32X3(W)                                                       \
+    case W:                                                                \
+        return tf32x3::launch_bwd<T, W>(q, k, v, out, lse, dout, dq, dk,   \
+                                        dv, scratch, part, splits, batch,  \
+                                        heads, kv_heads, sq, skv, d, st,   \
+                                        scale, causal, s);
+    switch (tf32x3::bucket(d)) {
+        FA_TF32X3(16)
+        FA_TF32X3(32)
+        FA_TF32X3(64)
+        FA_TF32X3(96)
+        FA_TF32X3(128)
+        FA_TF32X3(160)
+        FA_TF32X3(192)
+        FA_TF32X3(256)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FA_TF32X3
+}
+
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* out,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
-    float* scratch, int batch, int heads, int kv_heads, int sq, int skv,
-    int d, const int64_t* strides, float scale, int causal, void* stream) {
+    float* scratch, float* part, int splits, int batch, int heads,
+    int kv_heads, int sq, int skv, int d, const int64_t* strides,
+    float scale, int causal, void* stream) {
     if (batch < 1 || kv_heads < 1 || heads % kv_heads != 0 || d < 1 ||
-        d > 256 || sq < 1 || skv < 1 ||
-        static_cast<int64_t>(batch) * heads > 65535)
+        d > 256 || sq < 1 || skv < 1 || splits < 1 ||
+        (splits > 1 && part == nullptr) ||
+        static_cast<int64_t>(batch) * heads > 65535 ||
+        static_cast<int64_t>(splits) * batch * kv_heads > 2147483647 ||
+        (skv + 63) / 64 > 65535 || (sq + 63) / 64 > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    using simt::launch_bwd;
     const auto s = static_cast<cudaStream_t>(stream);
-    const bool wide = d > 128;
     switch (dtype) {
         case 0:
-            return wide ? launch_bwd<float, 16>(q, k, v, out, lse, dout, dq,
-                                                dk, dv, scratch, batch, heads,
-                                                kv_heads, sq, skv, d, strides,
-                                                scale, causal, s)
-                        : launch_bwd<float, 8>(q, k, v, out, lse, dout, dq,
-                                               dk, dv, scratch, batch, heads,
-                                               kv_heads, sq, skv, d, strides,
-                                               scale, causal, s);
+            return tf32x3_dispatch<float>(q, k, v, out, lse, dout, dq, dk, dv,
+                                          scratch, part, splits, batch, heads,
+                                          kv_heads, sq, skv, d, strides,
+                                          scale, causal, s);
         case 1:
-            return wide ? launch_bwd<__nv_bfloat16, 16>(
-                              q, k, v, out, lse, dout, dq, dk, dv, scratch,
-                              batch, heads, kv_heads, sq, skv, d, strides,
-                              scale, causal, s)
-                        : launch_bwd<__nv_bfloat16, 8>(
-                              q, k, v, out, lse, dout, dq, dk, dv, scratch,
-                              batch, heads, kv_heads, sq, skv, d, strides,
-                              scale, causal, s);
+            return tf32x3_dispatch<__nv_bfloat16>(
+                q, k, v, out, lse, dout, dq, dk, dv, scratch, part, splits,
+                batch, heads, kv_heads, sq, skv, d, strides, scale, causal,
+                s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1842,26 +2374,32 @@ extern "C" int flash_attention_bwd_launch(
 extern "C" int flash_attention_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* out,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
-    float* scratch, int batch, int heads, int kv_heads, int sq, int skv,
-    int d, const int64_t* strides, float scale, int causal, void* stream) {
+    float* scratch, float* part, int splits, int batch, int heads,
+    int kv_heads, int sq, int skv, int d, const int64_t* strides,
+    float scale, int causal, void* stream) {
     if (batch < 1 || kv_heads < 1 || heads % kv_heads != 0 || sq < 1 ||
-        skv < 1 || static_cast<int64_t>(batch) * heads > 65535 ||
+        skv < 1 || splits < 1 || (splits > 1 && part == nullptr) ||
+        static_cast<int64_t>(batch) * heads > 65535 ||
+        static_cast<int64_t>(splits) * batch * kv_heads > 2147483647 ||
         (skv + 63) / 64 > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     const auto s = static_cast<cudaStream_t>(stream);
     switch (d) {
         case 64:
             return tc::launch_bwd<64>(q, k, v, out, lse, dout, dq, dk, dv,
-                                      scratch, batch, heads, kv_heads, sq,
-                                      skv, strides, scale, causal, s);
+                                      scratch, part, splits, batch, heads,
+                                      kv_heads, sq, skv, strides, scale,
+                                      causal, s);
         case 128:
             return tc::launch_bwd<128>(q, k, v, out, lse, dout, dq, dk, dv,
-                                       scratch, batch, heads, kv_heads, sq,
-                                       skv, strides, scale, causal, s);
+                                       scratch, part, splits, batch, heads,
+                                       kv_heads, sq, skv, strides, scale,
+                                       causal, s);
         case 160:
             return tc::launch_bwd<160>(q, k, v, out, lse, dout, dq, dk, dv,
-                                       scratch, batch, heads, kv_heads, sq,
-                                       skv, strides, scale, causal, s);
+                                       scratch, part, splits, batch, heads,
+                                       kv_heads, sq, skv, strides, scale,
+                                       causal, s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1887,6 +2425,23 @@ extern "C" int flash_attention_bwd_wgmma_info(int d, int which, int* regs,
         case 64: return tc::bwd_info<64>(which, regs, smem);
         case 128: return tc::bwd_info<128>(which, regs, smem);
         case 160: return tc::bwd_info<160>(which, regs, smem);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The same for the tf32x3 backward's dK/dV (which 0) and dQ (which 1)
+// kernels built for head dim d (float32 inputs).
+extern "C" int flash_attention_bwd_tf32x3_info(int d, int which, int* regs,
+                                               int* smem) {
+    switch (d < 1 || d > 256 ? 0 : tf32x3::bucket(d)) {
+        case 16: return tf32x3::info<16>(which, regs, smem);
+        case 32: return tf32x3::info<32>(which, regs, smem);
+        case 64: return tf32x3::info<64>(which, regs, smem);
+        case 96: return tf32x3::info<96>(which, regs, smem);
+        case 128: return tf32x3::info<128>(which, regs, smem);
+        case 160: return tf32x3::info<160>(which, regs, smem);
+        case 192: return tf32x3::info<192>(which, regs, smem);
+        case 256: return tf32x3::info<256>(which, regs, smem);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -12,25 +12,32 @@ for the design).  Bound on the H100: operations, ``4 B H D`` (forward)
 and ``10 B H D`` (backward) x the (row, key) pairs the mask keeps, at the
 bf16 tensor-core peak.
 
-Two hand-written variants of each, chosen by input (:func:`variant`),
-never one in place of the other:
+Two hand-written variants of each, chosen by input (:func:`variant` for
+the forward, :func:`bwd_variant` for the backward), never one in place of
+the other:
 
-* ``"wgmma"``: bf16 with D in :data:`WGMMA_HEAD_DIMS` — tensor cores
-  (``wgmma``) for both products, K/V tiles brought in by TMA through an
-  mbarrier ring.  Tiles are whole 64-column boxes: at D 160 a third box
-  whose columns 160-191 TMA fills with zeros, and P V at N 192.  TMA
-  needs 16-byte aligned base pointers and strides; an input without
+* ``"wgmma"`` (both directions): bf16 with D in :data:`WGMMA_HEAD_DIMS` —
+  tensor cores (``wgmma``) for every product, tiles brought in by TMA
+  through an mbarrier ring.  Tiles are whole 64-column boxes: at D 160 a
+  third box whose columns 160-191 TMA fills with zeros, and P V at N 192.
+  TMA needs 16-byte aligned base pointers and strides; an input without
   them raises :class:`ValueError`.
   The backward rounds P and dS to bf16 once for their products.
-* ``"simt"``: float32, or any other D — scalar float32 products, so the
-  float32 path holds 1e-5.
+* the forward's ``"simt"``: float32, or any other D — scalar float32
+  products, so the float32 path holds 1e-5.
+* the backward's ``"tf32x3"``: float32, or bf16 at any other D — every
+  product on the tensor cores (``mma.sync`` m16n8k8, tf32) in the 3xTF32
+  split (hi + lo of each operand, three products), which keeps the
+  float32 limits (1e-5 against the float32 pullback; the CPU emulation of
+  that arithmetic in ``tests/test_torch_flash_backward.py`` holds it).
 
 Every forward adds one to the ``flash_attention`` counter and one to its
 variant's (``flash_attention_wgmma`` / ``flash_attention_simt``); every
-backward (three kernels: delta, dK/dV, dQ) one to ``flash_attention_bwd``
-and one to ``flash_attention_bwd_wgmma`` / ``flash_attention_bwd_simt``.
-The wrappers take CUDA tensors only; :mod:`.ops` routes CPU tensors to
-the plain versions in :mod:`.ref`.
+backward (three kernels: delta, dK/dV, dQ; a fourth, the sum of the dK/dV
+pass's partials, where :func:`dkv_splits` splits that pass) one to
+``flash_attention_bwd`` and one to ``flash_attention_bwd_wgmma`` /
+``flash_attention_bwd_tf32x3``.  The wrappers take CUDA tensors only;
+:mod:`.ops` routes CPU tensors to the plain versions in :mod:`.ref`.
 """
 from __future__ import annotations
 
@@ -54,7 +61,7 @@ VARIANT_LAUNCHES = {"wgmma": counter("flash_attention_wgmma"),
                     "simt": counter("flash_attention_simt")}
 BWD_LAUNCHES = counter("flash_attention_bwd")
 BWD_VARIANT_LAUNCHES = {"wgmma": counter("flash_attention_bwd_wgmma"),
-                        "simt": counter("flash_attention_bwd_simt")}
+                        "tf32x3": counter("flash_attention_bwd_tf32x3")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,18 +74,21 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_wgmma_launch.argtypes = [p, p, p, p, p, i32, i32,
                                                  i32, i32, i32, i32, p, f32,
                                                  i32, p]
-    # q, k, v, out, lse, dout, dq, dk, dv, scratch (delta, lse in base 2)
-    lib.flash_attention_bwd_launch.argtypes = [i32] + [p] * 10 + [
-        i32, i32, i32, i32, i32, i32, p, f32, i32, p]
-    lib.flash_attention_bwd_wgmma_launch.argtypes = [p] * 10 + [
-        i32, i32, i32, i32, i32, i32, p, f32, i32, p]
+    # q, k, v, out, lse, dout, dq, dk, dv, scratch (delta, lse in base 2),
+    # the dK/dV partials and the split count
+    lib.flash_attention_bwd_launch.argtypes = [i32] + [p] * 11 + [
+        i32, i32, i32, i32, i32, i32, i32, p, f32, i32, p]
+    lib.flash_attention_bwd_wgmma_launch.argtypes = [p] * 11 + [
+        i32, i32, i32, i32, i32, i32, i32, p, f32, i32, p]
     lib.flash_attention_wgmma_info.argtypes = [i32, p, p]
     lib.flash_attention_bwd_wgmma_info.argtypes = [i32, i32, p, p]
+    lib.flash_attention_bwd_tf32x3_info.argtypes = [i32, i32, p, p]
     for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
                lib.flash_attention_bwd_launch,
                lib.flash_attention_bwd_wgmma_launch,
                lib.flash_attention_wgmma_info,
-               lib.flash_attention_bwd_wgmma_info):
+               lib.flash_attention_bwd_wgmma_info,
+               lib.flash_attention_bwd_tf32x3_info):
         fn.restype = i32
     return lib
 
@@ -93,25 +103,110 @@ def wgmma_info(head_dim: int) -> dict:
     return {"registers": regs.value, "smem_bytes": smem.value}
 
 
-def bwd_wgmma_info(head_dim: int) -> dict:
-    """The same for the tensor-core backward's two main kernels, the
-    dK/dV pass ("dkv") and the dQ pass ("dq")."""
+def _bwd_info(fn, name: str, head_dim: int) -> dict:
     out = {}
-    for which, name in enumerate(("dkv", "dq")):
+    for which, part in enumerate(("dkv", "dq")):
         regs, smem = ctypes.c_int(), ctypes.c_int()
-        build.check(_lib().flash_attention_bwd_wgmma_info(
-            head_dim, which, ctypes.byref(regs), ctypes.byref(smem)),
-            "flash_attention_bwd_wgmma_info")
-        out[name] = {"registers": regs.value, "smem_bytes": smem.value}
+        build.check(fn(head_dim, which, ctypes.byref(regs),
+                       ctypes.byref(smem)), name)
+        out[part] = {"registers": regs.value, "smem_bytes": smem.value}
     return out
 
 
+def bwd_wgmma_info(head_dim: int) -> dict:
+    """The same for the tensor-core backward's two main kernels, the
+    dK/dV pass ("dkv") and the dQ pass ("dq")."""
+    return _bwd_info(_lib().flash_attention_bwd_wgmma_info,
+                     "flash_attention_bwd_wgmma_info", head_dim)
+
+
+def bwd_tf32x3_info(head_dim: int) -> dict:
+    """The same for the tf32x3 backward's dK/dV and dQ kernels built for
+    ``head_dim`` (float32 inputs)."""
+    return _bwd_info(_lib().flash_attention_bwd_tf32x3_info,
+                     "flash_attention_bwd_tf32x3_info", head_dim)
+
+
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that runs for inputs of ``dtype`` and ``head_dim``:
-    "wgmma" (tensor cores) for bf16 at D 64, 128 or 160, else "simt"."""
+    """The forward kernel that runs for inputs of ``dtype`` and
+    ``head_dim``: "wgmma" (tensor cores) for bf16 at D 64, 128 or 160,
+    else "simt"."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel that runs for inputs of ``dtype`` and
+    ``head_dim``: "wgmma" for bf16 at D 64, 128 or 160, else "tf32x3"
+    (float32 on the tensor cores)."""
+    return "wgmma" if variant(dtype, head_dim) == "wgmma" else "tf32x3"
+
+
+# --- the dK/dV pass's split ------------------------------------------------
+#: q rows a step of the dK/dV pass streams (the wgmma variant's; tf32x3
+#: streams 32 or 16, so its blocks take more, shorter steps)
+DKV_STEP_ROWS = 64
+
+
+def dkv_keys(head_dim: int) -> int:
+    """Keys a dK/dV block owns, in both variants: 128, or 64 above D 128
+    (where dV and dK are summed by different warps)."""
+    return 64 if head_dim > 128 else 128
+
+
+def dkv_splits(batch: int, kv_heads: int, group: int, sq: int, skv: int,
+               head_dim: int, sms: int) -> int:
+    """How many blocks share each KV tile's work in the dK/dV pass.
+
+    A block owns :func:`dkv_keys` keys of one KV head and walks its
+    group's q heads over the q tiles (under causal, from the diagonal
+    on), so a pass of fewer blocks than the card has SMs (``sms``; a block
+    holds an SM) runs one wave whose causal triangle leaves the SMs half
+    idle.  There the work of each KV tile is split over the fewest blocks
+    ``s`` that make a full wave, each summing float32 partials that one
+    more kernel adds in a fixed order; ``s`` never exceeds the heaviest
+    tile's steps.  (At qwen2-1.5b's training shape, 128 blocks on 132
+    SMs, that is 2: measured on an H100, 2 and 4 beat 3 and 6 by 1-3% in
+    bf16 and float32, and 1 is 1.35-1.5x slower.)  Where the grid already
+    fills the card, 1: nothing is split and no scratch is used."""
+    blocks = batch * kv_heads * -(-skv // dkv_keys(head_dim))
+    if blocks >= sms:
+        return 1
+    steps = group * -(-sq // DKV_STEP_ROWS)
+    return max(1, min(-(-sms // blocks), steps))
+
+
+def dkv_work(batch: int, kv_heads: int, group: int, sq: int, skv: int,
+             keys: int, rows: int, causal: bool, splits: int) -> list:
+    """The dK/dV pass's blocks in launch order, as the kernels walk them:
+    for each (KV tile y, then b * KH + KV head, then split j) the list of
+    (q head, q tile) steps that block sums.  KV tile y owns keys y * keys
+    .. y * keys + keys - 1; its steps are its group's q heads x its q
+    tiles of ``rows`` rows (under causal, from the one holding its first
+    key on), in order, split into ``splits`` runs, the longer first."""
+    n_q = -(-sq // rows)
+    blocks = []
+    for y in range(-(-skv // keys)):
+        qt0 = min(y * keys // rows, n_q) if causal else 0
+        per = n_q - qt0
+        total = group * per
+        base, extra = divmod(total, splits)
+        for x in range(splits * batch * kv_heads):
+            j, bkv = x % splits, x // splits
+            b, kvh = divmod(bkv, kv_heads)
+            begin = j * base + min(j, extra)
+            end = begin + base + (1 if j < extra else 0)
+            blocks.append({"b": b, "kv_head": kvh, "key_tile": y,
+                           "split": j,
+                           "steps": [(kvh * group + t // per, qt0 + t % per)
+                                     for t in range(begin, end)]})
+    return blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tma_strides(t: torch.Tensor) -> list:
@@ -244,7 +339,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    kind = variant(q.dtype, d)
+    kind = bwd_variant(q.dtype, d)
     if out.stride(-1) != 1:
         out = out.contiguous()
     if not _readable(dout, kind):
@@ -254,10 +349,17 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     sq_pad = -(-sq // 64) * 64
     scratch = torch.empty(2 * b * h * sq_pad, dtype=torch.float32,
                           device=q.device)
+    # the dK/dV pass's float32 partials, where it is split
+    splits = dkv_splits(b, kh, h // kh, sq, skv, d,
+                        _sm_count(q.device.index if q.device.index is not None
+                                  else torch.cuda.current_device()))
+    part = torch.empty(2 * splits * b * kh * skv * d if splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(d)
     ptrs = [t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv,
-                                   scratch)]
+                                   scratch)] + [
+        part.data_ptr() if splits > 1 else None, splits]
     if kind == "wgmma":
         strides = (ctypes.c_int64 * 24)(
             *[s for t in (q, k, v, dout) for s in _tma_strides(t)],

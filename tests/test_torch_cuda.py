@@ -307,14 +307,17 @@ def test_bloom_probe_op_is_one_mask_launch(cuda, s, k, q):
 
 def _assert_one_launch(before, kind, backward=False):
     """K5's forward (or, with ``backward``, its backward) launched once
-    since ``before``, on variant ``kind``, and nothing else of K5."""
+    since ``before``, on variant ``kind`` (a forward variant, or with
+    ``backward`` a backward one), and nothing else of K5."""
     after = launch_counts()
     moved = {n: after[n] - before.get(n, 0) for n in after
              if n.startswith("flash_attention")}
     name = "flash_attention_bwd" if backward else "flash_attention"
-    want = {n: 0 for n in ("flash_attention", "flash_attention_bwd")}
-    want.update({f"{n}_{o}": 0 for n in want
+    want = {"flash_attention": 0, "flash_attention_bwd": 0}
+    want.update({f"flash_attention_{o}": 0
                  for o in fa_kernel.VARIANT_LAUNCHES})
+    want.update({f"flash_attention_bwd_{o}": 0
+                 for o in fa_kernel.BWD_VARIANT_LAUNCHES})
     want.update({name: 1, f"{name}_{kind}": 1})
     assert {n: moved.get(n, 0) for n in want} == want, moved
 
@@ -394,9 +397,9 @@ def test_flash_attention_wgmma_d160_reads_no_column_past_d(cuda, causal):
 
 
 def test_flash_attention_grad_on_the_card(cuda):
-    """Forward and backward on K5 (float32: both SIMT kernels): the
-    gradient equals autograd of the plain version within 1e-5 (float32
-    products in both, summed in other orders)."""
+    """Forward and backward on K5 (float32: the SIMT forward, the tf32x3
+    backward): the gradient equals autograd of the plain version within
+    1e-5 (float32 products, or 3xTF32 ones, summed in other orders)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     shapes = ((2, 4, 100, 32), (2, 2, 100, 32), (2, 2, 100, 32))
     xs = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
@@ -447,7 +450,8 @@ def test_flash_attention_training_shape_forward_and_backward(cuda, b, sq,
     torch.testing.assert_close(out.float(), exact.detach(), **tol)
     before = launch_counts()
     (out * w).sum().backward()
-    _assert_one_launch(before, fa_kernel.variant(dtype, 128), backward=True)
+    _assert_one_launch(before, fa_kernel.bwd_variant(dtype, 128),
+                       backward=True)
     (exact * w.float()).sum().backward()
     if dtype == torch.float32:
         # an early key's dK or dV sums up to 512 rows x 6 heads of terms
@@ -476,15 +480,62 @@ def test_flash_attention_training_shape_forward_and_backward(cuda, b, sq,
         assert ours <= 1.25 * sdpa, (ours, sdpa)
 
 
+def _bwd_float64(q, k, v, out, lse, dout, causal):
+    """attention_bwd_ref's equations (the FlashAttention-2 backward from the
+    saved out and lse) evaluated in float64: the gradients of the given
+    inputs to well below float32's rounding."""
+    import math
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    q, k, v, out, lse, dout = (x.double() for x in (q, k, v, out, lse,
+                                                    dout))
+    kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    p = torch.exp(q @ kk.transpose(-1, -2) / math.sqrt(d) - lse[..., None])
+    if causal:
+        keep = (torch.arange(sq, device=q.device)[:, None] >=
+                torch.arange(skv, device=q.device)[None, :])
+        p = torch.where(keep, p, 0.0)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (dout @ vv.transpose(-1, -2) - delta)
+    dq = ds @ kk / math.sqrt(d)
+    dk = ds.transpose(-1, -2) @ q / math.sqrt(d)
+    dv = p.transpose(-1, -2) @ dout
+    return (dq, dk.reshape(b, kh, g, skv, d).sum(2),
+            dv.reshape(b, kh, g, skv, d).sum(2))
+
+
+def _assert_float32_gradient(got, ref, exact):
+    """A float32 gradient within 1e-5 + 1e-5 |exact| of the float64
+    evaluation of attention_bwd_ref's equations (``exact``) at every
+    element, and its rms distance from attention_bwd_ref's own (``ref``)
+    within 1e-5 + 1e-5 rms(ref), what that limit held element-wise
+    implies (the absolute term for gradients that are cancellation noise:
+    a row keeping one key has dS = 0 in exact arithmetic).
+    attention_bwd_ref sums in float32, so where a gradient sums
+    thousands of terms (an early key's dK and dV: 6 heads x up to 2,048
+    rows) its own rounding passes that element limit (measured on an
+    H100 against this float64 evaluation: 1.24x the limit at (1, 12, 2,
+    1000, 777, 128), 1.03x at (2, 12, 2, 2048, 2048, 128); the kernel's
+    0.36x and 0.62x) and cannot serve as the element-wise yardstick."""
+    torch.testing.assert_close(got.double(), exact.to(got.device),
+                               rtol=1e-5, atol=1e-5)
+    err = float(((got - ref) ** 2).mean().sqrt())
+    assert err <= 1e-5 * float((ref ** 2).mean().sqrt()) + 1e-5, err
+
+
 #: (B, H, KH, Sq, Skv, D): ragged lengths off every tile size, Sq != Skv
 #: both ways (causal with Sq > Skv among them), GQA groups 1, 2, 4 and 6,
-#: one key and one query row
+#: one key and one query row; and a long GQA case with few KV heads, whose
+#: dK/dV pass is split over several blocks a KV tile (dkv_splits > 1 on a
+#: card of more than 64 SMs)
 BWD_SHAPES = [(1, 2, 1, 200, 200, 64), (2, 4, 2, 333, 129, 64),
               (1, 6, 1, 65, 1, 64), (1, 2, 1, 1, 300, 64),
               (1, 8, 2, 300, 200, 128), (2, 4, 4, 128, 320, 128),
               (1, 12, 2, 1000, 777, 128), (1, 4, 1, 257, 257, 128),
               (2, 8, 2, 200, 200, 160), (1, 32, 8, 300, 300, 160),
-              (1, 6, 1, 333, 129, 160), (1, 2, 1, 1, 300, 160)]
+              (1, 6, 1, 333, 129, 160), (1, 2, 1, 1, 300, 160),
+              (2, 12, 2, 2048, 2048, 128)]
 
 
 @pytest.mark.parametrize("shape", BWD_SHAPES +
@@ -494,12 +545,13 @@ BWD_SHAPES = [(1, 2, 1, 200, 200, 64), (2, 4, 2, 333, 129, 64),
 def test_flash_attention_backward_kernel_matches_plain(cuda, shape, causal,
                                                        dtype):
     """K5's backward against attention_bwd_ref on the same inputs, out and
-    lse (the kernel's forward's) and output gradient: float32 (SIMT)
-    within 1e-5; bf16 at D 64 / 128 / 160 (wgmma) and at other D (SIMT)
-    within 1e-2 relative rms (+ 1e-5 absolute), the bf16 rounding of P
-    and dS (wgmma) and of the gradients (2^-9 relative each).  One
-    backward launch of the variant ``variant`` names, and two calls are
-    bit-equal."""
+    lse (the kernel's forward's) and output gradient: float32 (tf32x3)
+    within 1e-5 (+ 1e-5 relative) of its equations in float64, and by
+    rms of it (:func:`_assert_float32_gradient`); bf16 at D
+    64 / 128 / 160 (wgmma) and at other D (tf32x3) within 1e-2 relative
+    rms (+ 1e-5 absolute), the bf16 rounding of P and dS (wgmma) and of
+    the gradients (2^-9 relative each).  One backward launch of the
+    variant ``bwd_variant`` names, and two calls are bit-equal."""
     b, h, kh, sq, skv, d = shape
     gen = torch.Generator(device=cuda).manual_seed(sq * skv + d + causal)
     q, k, v, g = (torch.randn(s, generator=gen, device=cuda).to(dtype)
@@ -508,13 +560,16 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, shape, causal,
     out, lse = fa_kernel.flash_attention_kernel(q, k, v, causal)
     before = launch_counts()
     got = fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, causal)
-    _assert_one_launch(before, fa_kernel.variant(dtype, d), backward=True)
+    _assert_one_launch(before, fa_kernel.bwd_variant(dtype, d),
+                       backward=True)
     want = attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse,
                              g.float(), causal)
-    for x, y, like in zip(got, want, (q, k, v)):
+    exact = (_bwd_float64(q, k, v, out, lse, g, causal)
+             if dtype == torch.float32 else want)
+    for x, y, t, like in zip(got, want, exact, (q, k, v)):
         assert x.dtype == dtype and x.shape == like.shape
         if dtype == torch.float32:
-            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+            _assert_float32_gradient(x, y, t)
         else:
             # (+ 1e-5 absolute where the gradient is cancellation noise:
             # a row keeping one key has dS = dP - delta = 0 in exact
@@ -523,6 +578,40 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, shape, causal,
             assert bool(torch.isfinite(x).all())
             assert err <= 1e-2 * float((y ** 2).mean().sqrt()) + 1e-5, err
     again = fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, causal)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_unsplit_dkv_pass(cuda, monkeypatch, shape,
+                                                   dtype):
+    """The dK/dV pass without its split (dkv_splits forced to 1, as on a
+    grid that fills the card: one block a KV tile writes dK and dV itself,
+    no partials, no fourth kernel), causal, held to the same limits as
+    the test above; one backward launch and two calls bit-equal."""
+    b, h, kh, sq, skv, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + d)
+    q, k, v, g = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+                  for s in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d),
+                            (b, h, sq, d)))
+    out, lse = fa_kernel.flash_attention_kernel(q, k, v, True)
+    monkeypatch.setattr(fa_kernel, "dkv_splits", lambda *args: 1)
+    before = launch_counts()
+    got = fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, True)
+    _assert_one_launch(before, fa_kernel.bwd_variant(dtype, d),
+                       backward=True)
+    want = attention_bwd_ref(*(x.float() for x in (q, k, v, out)), lse,
+                             g.float(), True)
+    exact = (_bwd_float64(q, k, v, out, lse, g, True)
+             if dtype == torch.float32 else want)
+    for x, y, t in zip(got, want, exact):
+        if dtype == torch.float32:
+            _assert_float32_gradient(x, y, t)
+        else:
+            err = float(((x.float() - y) ** 2).mean().sqrt())
+            assert err <= 1e-2 * float((y ** 2).mean().sqrt()) + 1e-5, err
+    again = fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, g, True)
     for x, y in zip(got, again):
         assert torch.equal(x, y)
 
@@ -548,7 +637,7 @@ def test_flash_attention_backward_layouts(cuda, dtype, d):
         out = fn(*a, causal=True)
         before = launch_counts()
         out.sum().backward()
-        _assert_one_launch(before, fa_kernel.variant(dtype, d),
+        _assert_one_launch(before, fa_kernel.bwd_variant(dtype, d),
                            backward=True)
         for x, t in zip(a, xs):
             assert x.grad.stride() == x.stride()

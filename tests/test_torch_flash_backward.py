@@ -164,18 +164,21 @@ def test_forward_and_backward_flop_count(sq, skv, causal):
 
 
 def test_backward_variant_by_input():
-    """The backward takes the forward's variant rule: wgmma for bf16 at D
-    64, 128 and 160, SIMT for float32 and for bf16 at any other D; each
-    variant has its own counter beside flash_attention_bwd."""
+    """The backward runs wgmma for bf16 at D 64, 128 and 160 (as the
+    forward does) and tf32x3 for float32 and for bf16 at any other D
+    (where the forward runs SIMT); each backward variant has its own
+    counter beside flash_attention_bwd."""
     for d in (64, 128, 160):
-        assert p_fa_kernel.variant(torch.bfloat16, d) == "wgmma"
+        assert p_fa_kernel.bwd_variant(torch.bfloat16, d) == "wgmma"
+        assert p_fa_kernel.bwd_variant(torch.float32, d) == "tf32x3"
         assert p_fa_kernel.variant(torch.float32, d) == "simt"
-    for d in (16, 32, 96, 256):
+    for d in (1, 16, 32, 96, 200, 256):
+        assert p_fa_kernel.bwd_variant(torch.bfloat16, d) == "tf32x3"
         assert p_fa_kernel.variant(torch.bfloat16, d) == "simt"
     names = {c.name for c in (p_fa_kernel.BWD_LAUNCHES,
                               *p_fa_kernel.BWD_VARIANT_LAUNCHES.values())}
     assert names == {"flash_attention_bwd", "flash_attention_bwd_wgmma",
-                     "flash_attention_bwd_simt"}
+                     "flash_attention_bwd_tf32x3"}
 
 
 def test_backward_routes_by_device():
@@ -246,3 +249,186 @@ def test_remat_hands_the_recomputed_lse_to_the_backward():
              if e.key.startswith("repro_torch::")}
     assert calls == {"repro_torch::flash_attention_fwd": 2,
                      "repro_torch::flash_attention_bwd": 1}, calls
+
+
+# ---------------------------------------------------------------------------
+# The tf32x3 backward's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _float(u: torch.Tensor) -> torch.Tensor:
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(
+        torch.int32).view(torch.float32)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 (10 mantissa bits), nearest even, as the
+    kernel rounds each operand's hi part (add 0xfff plus the kept lsb,
+    clear the 13 low bits)."""
+    u = _bits(x)
+    return _float((u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000)
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of a float32 register handed to them as
+    tf32: its top 19 bits (the mantissa truncated to 10 bits)."""
+    return _float(_bits(x) & 0xFFFFE000)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b with tf32 operands: one product (terms 1, both operands
+    rounded), or the kernel's 3xTF32 split (terms 3: hi = tf32(x), lo = x
+    - hi as the tensor cores read it; hi hi + hi lo + lo hi).  Each
+    product of two tf32 values is exact in float32, so float32 matmuls of
+    the parts model the tensor cores' products; the sums are float32, as
+    the kernel's (it adds each step's products to its float32 sums
+    itself), in another order."""
+    if terms == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_bwd(q, k, v, out, lse, do, causal, terms):
+    """The backward's equations as the tf32x3 kernel computes them (every
+    product through :func:`_mm`; P and dS in float32; delta a float32
+    sum), float32 [B, H, S, D] in and out."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    log2e = 1.4426950408889634
+    kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = _mm(q, kk.transpose(-1, -2), terms)
+    p = torch.exp2(s * (log2e / math.sqrt(d)) - (lse * log2e)[..., None])
+    if causal:
+        keep = torch.arange(sq)[:, None] >= torch.arange(skv)[None, :]
+        p = torch.where(keep, p, 0.0)
+    delta = (do * out).sum(-1, keepdim=True)
+    ds = p * (_mm(do, vv.transpose(-1, -2), terms) - delta)
+    dv = _mm(p.transpose(-1, -2), do, terms)
+    dk = _mm(ds.transpose(-1, -2), q, terms) / math.sqrt(d)
+    dq = _mm(ds, kk, terms) / math.sqrt(d)
+    return (dq, dk.reshape(b, kh, g, skv, d).sum(2),
+            dv.reshape(b, kh, g, skv, d).sum(2))
+
+
+#: the float32 cases of tests/test_torch_cuda.py's backward test
+#: (BWD_SHAPES and its two other head dims); its long (2, 12, 2, 2048,
+#: 2048, 128) case, 2 x 12 x 2048^2 scores a product, is left to the card,
+#: and [1, 512, 12/2, 128] causal stands for that training shape here
+TF32X3_SHAPES = [(1, 2, 1, 200, 200, 64), (2, 4, 2, 333, 129, 64),
+                 (1, 6, 1, 65, 1, 64), (1, 2, 1, 1, 300, 64),
+                 (1, 8, 2, 300, 200, 128), (2, 4, 4, 128, 320, 128),
+                 (1, 12, 2, 1000, 777, 128), (1, 4, 1, 257, 257, 128),
+                 (2, 8, 2, 200, 200, 160), (1, 32, 8, 300, 300, 160),
+                 (1, 6, 1, 333, 129, 160), (1, 2, 1, 1, 300, 160),
+                 (2, 4, 2, 200, 300, 32), (1, 4, 1, 300, 200, 96)]
+
+
+@pytest.mark.parametrize("shape,causal",
+                         [(s, c) for s in TF32X3_SHAPES for c in (True, False)]
+                         + [((1, 12, 2, 512, 512, 128), True)])
+def test_tf32x3_arithmetic_holds_the_float32_limit(shape, causal):
+    """The tf32x3 kernel's arithmetic, emulated (every product of the
+    backward's equations in the 3xTF32 split), stays within the card
+    tests' float32 limit, 1e-5 + 1e-5 |ref| an element, of
+    attention_bwd_ref on the same inputs, out and lse; one tf32 product
+    (the plain TF32 the kernel does not use) misses it, so the test tells
+    the two apart."""
+    b, h, kh, sq, skv, d = shape
+    rng = np.random.default_rng(sq * skv + d + causal)
+    q, k, v, g = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                  for s in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d),
+                            (b, h, sq, d)))
+    out = p_fa_ops.flash_attention_fwd(q, k, v, causal)[0]
+    lse = attention_lse_ref(q, k, v, causal)
+    want = attention_bwd_ref(q, k, v, out, lse, g, causal)
+
+    def worst(terms):
+        got = _tf32_bwd(q, k, v, out, lse, g, causal, terms)
+        return max(float(((x - y).abs() / (1e-5 + 1e-5 * y.abs())).max())
+                   for x, y in zip(got, want))
+
+    assert worst(3) <= 1.0
+    assert worst(1) > 1.0
+
+
+def test_tf32_rounding_is_nearest_even():
+    """The emulation's rounding: 10 mantissa bits kept, halves to even,
+    exact values untouched; the tensor cores' read of a float32 register
+    truncates."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one, one + ulp / 2, one + 3 * ulp / 2,
+                      one + ulp / 2 + 2.0 ** -20, -(one + ulp / 4), 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, one, one + 2 * ulp, one + ulp, -one, 0.0])
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32_read(x), torch.tensor(
+        [one, one, one + ulp, one, -one, 0.0]))
+
+
+# ---------------------------------------------------------------------------
+# The dK/dV pass's split (host side)
+# ---------------------------------------------------------------------------
+def test_dkv_splits_where_the_grid_is_short():
+    """One block a KV tile fills less than a wave at qwen2-1.5b's training
+    shape (4 x 2 KV heads x 16 tiles = 128 blocks on 132 SMs): split 2
+    ways, the fewest that fill a wave (3 on a card of 300 SMs); a grid
+    that fills the card (zamba2 32/32, pixtral 32/8 at D 160, granite
+    16/8) stays whole; never more blocks a tile than its heaviest tile's
+    steps."""
+    splits = p_fa_kernel.dkv_splits
+    assert splits(4, 2, 6, 2048, 2048, 128, 132) == 2
+    assert splits(4, 2, 6, 2048, 2048, 128, 300) == 3
+    assert splits(4, 32, 1, 2048, 2048, 64, 132) == 1
+    assert splits(4, 8, 4, 2048, 2048, 160, 132) == 1
+    assert splits(4, 8, 2, 2048, 2048, 64, 132) == 1
+    assert splits(1, 1, 1, 64, 64, 64, 132) == 1
+    assert splits(1, 1, 2, 130, 64, 16, 132) == 6
+    assert splits(2, 2, 6, 2048, 2048, 128, 132) == 3
+    assert p_fa_kernel.dkv_keys(128) == 128 and p_fa_kernel.dkv_keys(160) == 64
+
+
+@pytest.mark.parametrize("b,kh,group,sq,skv,keys,rows,causal,splits", [
+    (4, 2, 6, 2048, 2048, 128, 64, True, 3),
+    (4, 2, 6, 2048, 2048, 128, 32, True, 3),
+    (2, 1, 4, 333, 129, 128, 64, True, 5),
+    (1, 2, 3, 300, 200, 64, 32, True, 7),
+    (1, 2, 3, 100, 300, 64, 16, True, 2),
+    (2, 2, 2, 200, 300, 128, 32, False, 4),
+    (1, 3, 1, 64, 64, 128, 64, True, 1)])
+def test_dkv_work_covers_each_kept_step_once_heaviest_first(
+        b, kh, group, sq, skv, keys, rows, causal, splits):
+    """Every kept (KV head, key tile, q head, q tile) is summed by exactly
+    one block; the blocks of a key tile come in the tile order, heaviest
+    tile first, and the shares of a tile's work differ by at most one
+    step, the larger first."""
+    from collections import Counter
+    blocks = p_fa_kernel.dkv_work(b, kh, group, sq, skv, keys, rows, causal,
+                                  splits)
+    seen = Counter((blk["b"], blk["kv_head"], blk["key_tile"], h, qt)
+                   for blk in blocks for h, qt in blk["steps"])
+    n_q, n_kv = -(-sq // rows), -(-skv // keys)
+    want = {(bb, kv, y, kv * group + j, qt)
+            for bb in range(b) for kv in range(kh) for y in range(n_kv)
+            for j in range(group) for qt in range(n_q)
+            if not causal or qt * rows + rows - 1 >= y * keys}
+    assert set(seen) == want and set(seen.values()) == {1}
+    assert len(blocks) == splits * b * kh * n_kv
+    tiles = [blk["key_tile"] for blk in blocks]
+    assert tiles == sorted(tiles)
+    work = {}
+    for blk in blocks:
+        work.setdefault(blk["key_tile"], []).append(len(blk["steps"]))
+    totals = [sum(work[y]) for y in sorted(work)]
+    assert totals == sorted(totals, reverse=True)
+    for y, sizes in work.items():
+        assert max(sizes) - min(sizes) <= 1
+        for i in range(0, len(sizes), splits):
+            share = sizes[i:i + splits]
+            assert share == sorted(share, reverse=True)
+    assert len(blocks[0]["steps"]) == max(len(blk["steps"]) for blk in blocks)
