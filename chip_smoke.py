@@ -27,9 +27,10 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   bf16 tensor-core variant) and 32 greedy decode steps through
   ``repro_torch.launch.serve.serve_batch``; the prefill is
   held against the plain chunked-attention path on the same weights
-  (float32 compute: logits and KV cache within 5e-2; bf16 compute: no
-  further from the float32 logits than the plain path); one prefill and
-  four decode steps are traced with ``torch.profiler``.
+  (float32 compute: logits and KV cache within 5e-2, its 28 K5 launches
+  all ``tf32x3``; bf16 compute: no further from the float32 logits than
+  the plain path); one prefill and four decode steps are traced with
+  ``torch.profiler``.
 * ``families`` (last, after the search phase): every other model family at
   its published widths and depths, random weights from ``--seed``, flash
   attention, one model at a time with its peak memory: granite-moe-1b
@@ -45,8 +46,8 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   the fused prefill, all 40 K5 launches on its tensor-core variant at
   D 160, and 32 decode steps).  Each is held against the plain attention
   path as the lm phase is (xlstm, without attention: float32 on the card
-  against the host's CPU); every check runs before the phase fails on
-  any.
+  against the host's CPU), every K5 launch of the float32 flash run on
+  ``tf32x3``; every check runs before the phase fails on any.
 * ``kernels``: every kernel against its plain PyTorch version on the
   card, at the phases' shapes plus ragged ones, with times and bounds;
   K1 also at its edges (N around its shared tree's size, N = 1-33, runs of
@@ -56,9 +57,14 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   depth, NaN queries among the float32 cases; K4's hits and mask
   variants, and the bloom_probe op's device time, host time per call and
   the kernels one call launched (traced); K5 also at each family's
-  attention shapes, with SDPA's time beside it (and pixtral's in
-  float32, on the SIMT variant), and the registers and shared memory of
-  its tensor-core variant at each head dim it is built for; K5's
+  attention shapes, with SDPA's time beside it, and the registers and
+  shared memory of its tensor-core variant at each head dim it is built
+  for; K5's float32 forward (its own row, ``tf32x3``: 3xTF32 on the
+  tensor cores) at qwen2-1.5b's shape and every family's in float32,
+  beside the plain version, SDPA in float32 and both bounds, with its
+  registers, shared memory and spills and its launches on every float32
+  path (the lm and families phases' float32 flash witnesses, the train
+  phase's float32 first step); K5's
   backward (two rows: ``wgmma`` in bf16 and ``tf32x3`` in float32, at
   the train shape; also at each family's shape): one launch of its
   variant, two calls bit-equal, against the float32 pullback (bf16: each
@@ -107,7 +113,8 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   counted and traced (K5 56 times, forward and remat recompute, and its
   backward 28 times, every launch its tensor-core variant; the trace
   holds the backward's kernels a launch, four where its dK/dV pass is
-  split; the float32 first step's 28 backward launches all tf32x3).
+  split; the float32 first step's 56 forward and 28 backward launches
+  all tf32x3).
   Records the step's
   host seconds
   (median of steps 2-8), tokens/s, device ms, launches, K5's share, the
@@ -1265,10 +1272,19 @@ def phase_lm(seed: int) -> dict:
             for dtype in ("float32", "bfloat16"):
                 m = build(dataclasses.replace(cfg, attn_impl=impl,
                                               compute_dtype=dtype))
+                reset_launch_counts()
                 logits, cache = make_prefill_step(m, max_len)(params,
                                                               prompt_t)
                 res[impl, dtype] = (logits.float(), cache)
+                if (impl, dtype) == ("flash", "float32"):
+                    f32_launches = _k5_moved({}, launch_counts())
     torch.cuda.synchronize()
+    # the float32 prefill: every K5 launch on the tf32x3 variant
+    assert f32_launches.get("flash_attention") == cfg.n_layers and \
+        f32_launches.get("flash_attention_tf32x3") == cfg.n_layers and \
+        f32_launches.get("flash_attention_wgmma", 0) == 0, \
+        f"the float32 prefill's K5 launches {f32_launches}, expected " \
+        f"{cfg.n_layers}, all tf32x3"
     truth = res["xla", "float32"][0]
 
     def rms(a, b):
@@ -1298,6 +1314,7 @@ def phase_lm(seed: int) -> dict:
            "decode_tok_s": LM_BATCH * LM_DECODE / run["decode_s"],
            "prefill_tok_s": LM_BATCH * LM_PROMPT / run["prefill_s"],
            "launches": launches, "float32_compute": f32,
+           "float32_flash_launches": f32_launches,
            "bfloat16_compute": bf16, "same_tokens_on_repeat": True,
            "first_tokens": tokens[:, :8].tolist()}
     assert _max_abs(res["flash", "bfloat16"][0], run["prefill_logits"]) == 0
@@ -1400,23 +1417,33 @@ class Checks:
         assert not self.failures, "; ".join(self.failures)
 
 
-def _against_plain(cfg, fn, checks: Checks) -> dict:
+def _against_plain(cfg, fn, checks: Checks, k5_want: int) -> dict:
     """``fn(cfg)`` -> {name: tensor} under flash attention (K5) and the
     plain chunked path, in float32 and bf16 compute, on the same weights:
     float32 flash within LM_TOL of float32 plain, and in bf16 the flash
     path no further (rms, 1.25x) from the float32 plain result than the
-    bf16 plain path is (the lm phase's checks)."""
+    bf16 plain path is (the lm phase's checks).  The float32 flash run
+    launches K5 ``k5_want`` times, every one on the tf32x3 variant."""
     import dataclasses
     import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     res = {}
     with torch.no_grad():
         for impl in ("flash", "xla"):
             for dtype in ("float32", "bfloat16"):
+                reset_launch_counts()
                 got = fn(dataclasses.replace(cfg, attn_impl=impl,
                                              compute_dtype=dtype))
                 res[impl, dtype] = {k: v.float() for k, v in got.items()}
+                if (impl, dtype) == ("flash", "float32"):
+                    k5 = _k5_moved({}, launch_counts())
     torch.cuda.synchronize()
-    out = {}
+    out = {"float32_flash_k5_launches": k5}
+    checks.expect(k5.get("flash_attention") == k5_want and
+                  k5.get("flash_attention_tf32x3") == k5_want and
+                  k5.get("flash_attention_wgmma", 0) == 0,
+                  f"{cfg.arch_id}: the float32 flash run's K5 launches "
+                  f"{k5}, expected {k5_want}, all tf32x3")
     for name, want in res["xla", "float32"].items():
         f32 = res["flash", "float32"][name]
         row = {"float32_flash_vs_plain_max_abs": _max_abs(f32, want)}
@@ -1567,7 +1594,8 @@ def _family_granite(seed: int, checks: Checks) -> dict:
         return {"logits": logits}
 
     t0 = time.perf_counter()
-    out["vs_plain"] = _against_plain(cfg, last_logits, checks)
+    out["vs_plain"] = _against_plain(cfg, last_logits, checks,
+                                     cfg.n_layers)
     out["vs_plain_s"] = time.perf_counter() - t0
     # tokens dropped by capacity in one prefill (each MoE layer's routing
     # counted again beside the call)
@@ -1641,7 +1669,7 @@ def _family_scan(arch: str, seed: int, checks: Checks) -> dict:
     t0 = time.perf_counter()
     if attention:
         del logits
-        out["vs_plain"] = _against_plain(cfg, full_logits, checks)
+        out["vs_plain"] = _against_plain(cfg, full_logits, checks, want)
     else:
         out["vs_plain"] = _against_host(cfg, params, tokens, logits.float(),
                                         checks)
@@ -1756,7 +1784,8 @@ def _family_seamless(seed: int, checks: Checks) -> dict:
                 "last_logits": L.unembed(params["embed"], hid[:, -1:], c)}
 
     t0 = time.perf_counter()
-    out["vs_plain"] = _against_plain(cfg, outputs, checks)
+    out["vs_plain"] = _against_plain(
+        cfg, outputs, checks, 2 * cfg.n_encoder_layers + 2 * n)
     out["vs_plain_s"] = time.perf_counter() - t0
     # served: prefill_cross on K5 (bf16), then 16 greedy decode steps
     step = make_serve_step(model)
@@ -1798,11 +1827,20 @@ def _family_seamless(seed: int, checks: Checks) -> dict:
         for impl in ("flash", "xla"):
             c = dataclasses.replace(cfg, attn_impl=impl,
                                     compute_dtype="float32")
+            reset_launch_counts()
             caches[impl] = encdec.prefill_cross(
                 params, src, c, encdec.init_cache(c, FAM_BATCH,
                                                   STEP_DECODE + 1,
                                                   src_len=SRC_LEN,
                                                   device=DEVICE))
+            if impl == "flash":
+                k5 = _k5_moved({}, launch_counts())
+                out["prefill_cross_float32_k5_launches"] = k5
+                checks.expect(
+                    k5.get("flash_attention") == cfg.n_encoder_layers and
+                    k5.get("flash_attention_tf32x3") ==
+                    cfg.n_encoder_layers,
+                    f"seamless prefill_cross (float32) K5 launches {k5}")
         out["prefill_cross_vs_plain_max_abs"] = {
             name: _max_abs(caches["flash"][name], caches["xla"][name])
             for name in ("xk", "xv")}
@@ -1833,7 +1871,7 @@ def _family_seamless(seed: int, checks: Checks) -> dict:
 def _family_pixtral(seed: int, checks: Checks) -> dict:
     """pixtral-12b at full width and depth (bf16 parameters): 256 patch
     embeddings + 1,792 tokens, x 4, through the fused prefill (K5's
-    tensor-core variant at D 160, 40 launches, none on SIMT) and 32
+    tensor-core variant at D 160, 40 launches, none on tf32x3) and 32
     decode steps."""
     import dataclasses
     import torch
@@ -1856,7 +1894,7 @@ def _family_pixtral(seed: int, checks: Checks) -> dict:
     k5 = out["k5_launches"]
     checks.expect(k5.get("flash_attention") == cfg.n_layers and
                   k5.get("flash_attention_wgmma") == cfg.n_layers and
-                  k5.get("flash_attention_simt", 0) == 0,
+                  k5.get("flash_attention_tf32x3", 0) == 0,
                   f"pixtral prefill K5 launches {k5}")
     checks.expect(bool(torch.isfinite(run["prefill_logits"].float()).all()),
                   "pixtral prefill logits not finite")
@@ -1868,7 +1906,8 @@ def _family_pixtral(seed: int, checks: Checks) -> dict:
         return {"logits": logits}
 
     t0 = time.perf_counter()
-    out["vs_plain"] = _against_plain(cfg, last_logits, checks)
+    out["vs_plain"] = _against_plain(cfg, last_logits, checks,
+                                     cfg.n_layers)
     out["vs_plain_s"] = time.perf_counter() - t0
     prefill = make_prefill_step(model, max_len)
     with torch.no_grad():
@@ -1916,7 +1955,7 @@ def phase_families(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 #: 4 sequences of 2,048 tokens a step, 8 steps, a checkpoint every 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 8, 4
-#: the first step, float32 compute, flash (K5's SIMT forward and tf32x3
+#: the first step, float32 compute, flash (K5's tf32x3 forward and
 #: backward) against the plain chunked path: loss and grad_norm within
 #: this relative distance (the paths differ only in attention's summation
 #: order and the backward's 3xTF32 products, ~1e-6 relative an output)
@@ -1955,11 +1994,12 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
 
 def _first_step(cfg, state, batch, checks: Checks) -> dict:
     """The run's first step against the plain attention path, on the same
-    state and batch: float32 compute (flash's SIMT forward and tf32x3
+    state and batch: float32 compute (flash's tf32x3 forward and
     backward vs the chunked path) loss and grad_norm within
     TRAIN_F32_RTOL; bf16 compute (the run's own path, K5's tensor-core
     variant) by the witness.  The float32 flash step's K5 launches are
-    counted (the tf32x3 backward's path)."""
+    counted (the tf32x3 forward's and backward's path): 2 forwards a
+    layer with remat (the recompute), 1 without, and 1 backward."""
     import dataclasses
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1988,10 +2028,15 @@ def _first_step(cfg, state, batch, checks: Checks) -> dict:
             del grads
     torch.cuda.synchronize()
     moved = out["float32_flash_launches"]
-    checks.expect(moved.get("flash_attention_bwd") == cfg.n_layers and
+    fwd = (2 if cfg.remat else 1) * cfg.n_layers
+    checks.expect(moved.get("flash_attention") == fwd and
+                  moved.get("flash_attention_tf32x3") == fwd and
+                  moved.get("flash_attention_wgmma", 0) == 0 and
+                  moved.get("flash_attention_bwd") == cfg.n_layers and
                   moved.get("flash_attention_bwd_tf32x3") == cfg.n_layers,
-                  f"train first step, float32 flash: K5 backward launches "
-                  f"{moved}, expected {cfg.n_layers}, all tf32x3")
+                  f"train first step, float32 flash: K5 launches {moved}, "
+                  f"expected {fwd} forward and {cfg.n_layers} backward, "
+                  f"all tf32x3")
     f, p = out["float32_flash"], out["float32_xla"]
     for key in ("loss", "grad_norm"):
         rel = abs(f[key] - p[key]) / abs(p[key])
@@ -2048,7 +2093,7 @@ def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
     want, layers = 2 * cfg.n_layers, cfg.n_layers
     checks.expect(counted.get("flash_attention") == want and
                   counted.get("flash_attention_wgmma") == want and
-                  counted.get("flash_attention_simt") == 0 and
+                  counted.get("flash_attention_tf32x3") == 0 and
                   _bwd_launches_ok(counted, layers),
                   f"train step: K5 launches {counted}, expected {want} "
                   f"forward and {layers} backward, all wgmma")
@@ -2058,8 +2103,8 @@ def _traced_step(cfg, state, batch, run, checks: Checks) -> dict:
     # the trace's names: tc::flash_wgmma_kernel<D> (forward);
     # simt::flash_bwd_prep_kernel, tc::flash_bwd_dkv_kernel<D>,
     # simt::flash_bwd_reduce_kernel<T> (a split dK/dV pass) and
-    # tc::flash_bwd_dq_kernel<D> (backward); simt::flash_kernel and
-    # tf32x3::flash_bwd_{dkv,dq}_kernel, the other variants
+    # tc::flash_bwd_dq_kernel<D> (backward); tf32x3::flash_fwd_kernel
+    # and tf32x3::flash_bwd_{dkv,dq}_kernel, the other variants
     names = prof.pop("flash_kernels")
     by_ms = prof.pop("flash_ms_by_kernel")
 
@@ -2191,7 +2236,7 @@ def phase_train(seed: int) -> dict:
                     (step_s * 1e3)})
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_wgmma": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_simt": 0,
+            "flash_attention_tf32x3": 0,
             "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_wgmma": cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd_tf32x3": 0}
@@ -2344,7 +2389,7 @@ def _remat_off_steps(seed: int, checks: Checks) -> dict:
         k5 = out["k5_launches"]
         checks.expect(k5.get("flash_attention") == want and
                       k5.get("flash_attention_wgmma") == want and
-                      k5.get("flash_attention_simt") == 0 and
+                      k5.get("flash_attention_tf32x3") == 0 and
                       _bwd_launches_ok(k5, want),
                       f"remat-off steps: K5 launches {k5}, expected {want} "
                       f"forward and {want} backward, all wgmma")
@@ -3259,7 +3304,7 @@ def _k5_inputs(gen, b, h, kh, sq, skv, d, dtype):
 
 #: K5 at each family's shapes (the full configs): name, B, H, KH, Sq,
 #: Skv, D, causal, dtype.  bf16 is the served path's; pixtral's float32
-#: row is the float32-compute witness's, and holds the SIMT forward at D 160
+#: row is the float32-compute witness's (the tf32x3 forward at D 160)
 K5_FAMILY_SHAPES = [
     ("granite-moe prefill", 4, 16, 8, 2048, 2048, 64, True, "bfloat16"),
     ("zamba2 shared attention", 4, 32, 32, 2048, 2048, 64, True, "bfloat16"),
@@ -3271,12 +3316,24 @@ K5_FAMILY_SHAPES = [
 ]
 
 
+#: the families' bf16 shapes (the K5 row's)
+K5_BF16_SHAPES = [row for row in K5_FAMILY_SHAPES if row[-1] == "bfloat16"]
+#: the float32 forward (tf32x3) at every float32 shape the card runs:
+#: qwen2-1.5b's prefill and its training attention (the lm phase's and
+#: the train phase's float32 checks), then every family's shape in float32
+#: (each family's float32 flash witness)
+K5_F32_SHAPES = [("qwen2-1.5b float32", LM_BATCH, 12, 2, LM_PROMPT,
+                  LM_PROMPT, 128, True, "float32")] + [
+    (f"{name} float32", *dims, "float32") for name, *dims, _ in K5_BF16_SHAPES]
+
+
 def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
     """K5 against its plain version at each family's shape: error (bf16
     within 1e-4 + 2^-8 |ref|, float32 within 1e-5 + 1e-5 |ref|), time,
     bound (4 B H D x the pairs the mask keeps, at the peak of the inputs'
     type: bf16 on the tensor cores, whichever variant runs; float32 off
-    them), the plain version's time and SDPA's."""
+    them, and for float32 also at 3x the dense TF32 rate, the tf32x3
+    kernel's own arithmetic), the plain version's time and SDPA's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts
@@ -3325,7 +3382,12 @@ def k5_family_cases(gen, shapes=K5_FAMILY_SHAPES) -> list:
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "ops_peak": peak, "tflops": n_ops / (ms * 1e-3) / 1e12})
+                     "ops_peak": peak, "tflops": n_ops / (ms * 1e-3) / 1e12,
+                     "bytes": n_bytes, "ops": n_ops})
+        if dtype == torch.float32:
+            rows[-1]["bound_tf32x3_ms"] = max(
+                t_bytes, 3 * n_ops / TF32_TC_OPS_PER_S * 1e3)
+        log(f"K5 {name}: {json.dumps(rows[-1])}")
         del q, k, v, qc, kc, vc
     return rows
 
@@ -3538,7 +3600,8 @@ def kernel_k5(seed, launches) -> dict:
     main = _k5_inputs(gen, b, h, kh, sq, sq, d, torch.bfloat16)
     # (inputs, causal, rtol, atol): bf16 output rounding is 2^-9 relative,
     # held at 2^-8 plus 1e-4; float32 at 1e-5.  bf16 at D 64 / 128 / 160
-    # runs the tensor-core variant, the rest the SIMT one
+    # runs the tensor-core variant, the rest the tf32x3 one (also at its
+    # edges: one query row, one key, causal Sq > Skv, D 24 and 256)
     bf16_tol, f32_tol = (2.0 ** -8, 1e-4), (1e-5, 1e-5)
     cases = [(main, True) + bf16_tol,
              (_k5_inputs(gen, 1, h, kh, 1000, 777, d, torch.bfloat16),
@@ -3550,7 +3613,17 @@ def kernel_k5(seed, launches) -> dict:
              (_k5_inputs(gen, 2, 8, 2, 333, 333, 64, torch.bfloat16),
               True) + bf16_tol,
              (_k5_inputs(gen, 1, h, kh, 300, 200, d, torch.bfloat16),
-              True) + bf16_tol]
+              True) + bf16_tol,
+             (_k5_inputs(gen, 2, h, kh, 1, 300, d, torch.float32),
+              True) + f32_tol,
+             (_k5_inputs(gen, 2, 6, 1, 77, 1, 64, torch.float32),
+              False) + f32_tol,
+             (_k5_inputs(gen, 1, 4, 1, 300, 130, 160, torch.float32),
+              True) + f32_tol,
+             (_k5_inputs(gen, 1, 2, 1, 150, 100, 24, torch.float32),
+              True) + f32_tol,
+             (_k5_inputs(gen, 1, 2, 1, 129, 70, 256, torch.float32),
+              True) + f32_tol]
     errs = []
     for (q, k, v), causal, rtol, atol in cases:
         kind = kernel.variant(q.dtype, q.shape[-1])
@@ -3571,8 +3644,8 @@ def kernel_k5(seed, launches) -> dict:
                          **{f"flash_attention_{o}": 0 for o in
                             kernel.VARIANT_LAUNCHES if o != kind}}, \
             f"K5 {tuple(q.shape)} {q.dtype}: counters moved {moved}"
-    # the gradient: forward and backward on K5 (float32: the SIMT forward
-    # and the tf32x3 backward), against autograd of attention_ref
+    # the gradient: forward and backward on K5 (float32: the tf32x3
+    # forward and backward), against autograd of attention_ref
     xs = _k5_inputs(gen, 2, 4, 2, 100, 100, 32, torch.float32)
     w = torch.randn(xs[0].shape, generator=gen, device=DEVICE)
     ga = [x.detach().clone().requires_grad_(True) for x in xs]
@@ -3590,11 +3663,6 @@ def kernel_k5(seed, launches) -> dict:
     qc, kc, vc = (x.contiguous() for x in main)
     library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
         qc, kc, vc, is_causal=True, enable_gqa=True), reps=20)
-    # the SIMT variant at the same shape in float32 (the float32-compute
-    # path's kernel)
-    qf, kf, vf = (x.float() for x in main)
-    simt_ms = timed_ms(lambda: kernel.flash_attention_kernel(qf, kf, vf,
-                                                             True), reps=5)
     # the tensor-core variant's registers a thread (at launch) and shared
     # memory a block, at each head dim it is built for
     wgmma_info = {str(dd): kernel.wgmma_info(dd)
@@ -3620,23 +3688,53 @@ def kernel_k5(seed, launches) -> dict:
                  # split into bf16 hi + lo), so 1.5x the bound's count
                  "tensor_tflops_done": 1.5 * n_ops / (ms * 1e-3) / 1e12,
                  "wgmma_info": wgmma_info,
-                 "simt_float32_ms": simt_ms,
-                 "family_shapes": k5_family_cases(gen),
-                 "simt_float32_shape": f"[{b},{h},{sq},{d}] float32 causal",
+                 "family_shapes": k5_family_cases(gen, K5_BF16_SHAPES),
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True, enable_gqa=True)"})
 
 
+def kernel_k5_tf32x3(seed) -> dict:
+    """The kernels line's row of K5's float32 forward (``tf32x3``), from
+    :func:`k5_family_cases` at every float32 shape the card runs
+    (K5_F32_SHAPES; qwen2-1.5b's first, the row's own), with the kernel's
+    registers, shared memory and local memory (spills) at the buckets the
+    float32 paths run; its launches are those paths', filled in after the
+    phases that run them."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    rows = k5_family_cases(gen, K5_F32_SHAPES)
+    assert all(r["variant"] == "tf32x3" for r in rows), rows
+    main = rows[0]
+    info = {str(d): kernel.fwd_tf32x3_info(d) for d in (64, 128, 160)}
+    log(f"K5 tf32x3_info: {json.dumps(info)}")
+    return _row("K5 flash_attention (tf32x3)", "cuda",
+                "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:84 "
+                "(flash_attention_kernel, _flash_kernel :33), float32",
+                0, main["max_abs_err"], main["ms"], main["plain_ms"],
+                main["bytes"], main["ops"], "fp32", main["library_ms"],
+                {"shape": f"[{main['b']},12,{main['sq']},128] kv_heads=2 "
+                          f"float32 causal, [B,S,H,D] strides",
+                 "variant": "tf32x3",
+                 "library": "scaled_dot_product_attention (is_causal=True, "
+                            "enable_gqa=True), float32",
+                 "bound_tf32x3_ms": main["bound_tf32x3_ms"],
+                 "tflops": main["tflops"], "tf32x3_info": info,
+                 "shapes": rows})
+
+
 def only_k5(seed: int) -> list:
     """``--only k5``: K5 against its plain version, timed beside SDPA, at
-    the lm phase's shape and each family's (:func:`k5_family_cases`), and
+    the lm phase's shape and each family's, in bf16 and float32
+    (:func:`k5_family_cases`), and
     its backward beside SDPA's at the train shape and each family's
     (:func:`k5_backward`)."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     lm = ("lm prefill", LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128, True,
           "bfloat16")
-    return k5_family_cases(gen, [lm] + K5_FAMILY_SHAPES) + [
+    return k5_family_cases(gen, [lm] + K5_BF16_SHAPES + K5_F32_SHAPES) + [
         dict(row, case="backward") for row in k5_backward(gen)]
 
 
@@ -3812,7 +3910,8 @@ def main(argv=None) -> int:
     bwd_rows = k5_backward(
         torch.Generator(device=DEVICE).manual_seed(args.seed + 6))
     kernels += [kernel_k5_backward(bwd_rows),
-                kernel_k5_backward_tf32x3(bwd_rows)]
+                kernel_k5_backward_tf32x3(bwd_rows),
+                kernel_k5_tf32x3(args.seed)]
     report["kernels_phase_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3940,6 +4039,20 @@ def main(argv=None) -> int:
     kernels[7]["launches"] = f32.get("flash_attention_bwd_tf32x3", 0)
     kernels[7]["launches_by_path"] = {
         "qwen2-1.5b train, the float32 first step (flash)": f32}
+    # the tf32x3 forward: every float32 flash run of the lm, families and
+    # train phases
+    by_path = {
+        "lm qwen2-1.5b float32 prefill": lm["float32_flash_launches"],
+        **{f"{name} float32 flash witness":
+           fam[name]["vs_plain"]["float32_flash_k5_launches"]
+           for name in ("granite-moe-1b-a400m", "zamba2-1.2b",
+                        "seamless-m4t-large-v2", "pixtral-12b")},
+        "seamless float32 prefill_cross":
+            seamless["prefill_cross_float32_k5_launches"],
+        "qwen2-1.5b train, the float32 first step (flash, remat)": f32}
+    kernels[8]["launches"] = sum(c.get("flash_attention_tf32x3", 0)
+                                 for c in by_path.values())
+    kernels[8]["launches_by_path"] = by_path
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

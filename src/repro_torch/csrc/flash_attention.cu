@@ -21,15 +21,17 @@
 //   * q, k, v and out are read and written through their strides, so the
 //     model's [B, S, H, D] layout needs no transpose copy.
 // What bounds it on the H100: operations, 4 B H D x (the (row, key) pairs
-// the mask keeps) against the bf16 tensor-core peak.
+// the mask keeps) against the peak of the inputs' type (bf16 tensor cores;
+// float32 67 TFLOP/s).
 //
 // The launcher takes the variant by input, explicitly (the wrapper in
 // kernels/flash_attention/kernel.py names it and counts it):
 //   * flash_attention_wgmma_launch: bf16 with D in {64, 128, 160}, the
 //     tensor-core kernel below (namespace tc);
-//   * flash_attention_launch: float32, or any other D, the SIMT kernel
-//     (namespace simt), whose float32 products hold the float32-compute
-//     path to 1e-5.
+//   * flash_attention_launch: float32, or bf16 at any other D, the tf32x3
+//     kernel (namespace tf32x3, flash_fwd_kernel): float32 on the tensor
+//     cores in the 3xTF32 split, which holds the float32-compute path to
+//     1e-5.
 // (The backward's variants, tc and tf32x3, are described below.)
 //
 // --- tc: bf16, D in {64, 128, 160}, on wgmma with TMA-fed K/V tiles ----
@@ -180,21 +182,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// --- simt: float32, or bf16 at any other D ------------------------------
-// One block of 256 threads owns one (batch * head, 64-row q tile) and walks
-// the kv tiles in a loop, the running state in registers: each thread owns
-// 4 query rows x (4 score columns, D / 16 output columns).  K (transposed)
-// and V tiles of 64 keys stream through shared memory, one after the other
-// in one buffer, next to the scaled Q tile and the 64 x 64 tile of P; both
-// products are scalar float32 FMAs (no tensor cores).
+// 2^x on the SFU, subnormal results flushed to 0 (a p below 2^-126 moves
+// no output); exp2f's extra path for them spilled at D 160
+__device__ __forceinline__ float exp2_ftz(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// --- simt: what the variants share, and two small kernels of the backward -
 namespace simt {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 x 16: ty owns 4 rows, tx 4 columns
-constexpr int kKS = kBK + 4;     // row stride of the transposed K tile
-constexpr int kPS = kBK + 1;     // row stride of the P tile
-constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -212,173 +211,6 @@ from_float<__nv_bfloat16>(float x) {
 struct Strides {           // element strides of a [B, H, S, D] view
     int64_t b, h, s;
 };
-
-// JMAX: output columns per thread, D <= 16 * JMAX
-template <typename T, int JMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out,
-             float* __restrict__ lse, int heads, int group, int sq, int skv,
-             int d, Strides qs, Strides ks, Strides vs, Strides os,
-             float scale, int causal) {
-    extern __shared__ float smem[];
-    const int qst = d + 4;                       // Q tile row stride
-    float* q_tile = smem;                        // [kBQ][qst]
-    float* kv_tile = q_tile + kBQ * qst;         // K^T [d][kKS] or V [kBK][d]
-    float* p_tile = kv_tile + d * kKS;           // [kBQ][kPS]
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 4, tx = tid & 15;
-    const int bh = blockIdx.y;
-    const int b = bh / heads, h = bh % heads, kvh = h / group;
-    const int q_lo = blockIdx.x * kBQ;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + kvh * ks.h;
-    const T* vb = v + b * vs.b + kvh * vs.h;
-
-    for (int e = tid; e < kBQ * d; e += kThreads) {
-        const int r = e / d, c = e - r * d;
-        const int row = q_lo + r;
-        q_tile[r * qst + c] =
-            row < sq ? to_float(qb[row * qs.s + c]) * scale : 0.f;
-    }
-
-    float m[4], l[4], acc[4][JMAX];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = kNegInf;
-        l[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < JMAX; ++j) acc[i][j] = 0.f;
-    }
-
-    int n_tiles = (skv + kBK - 1) / kBK;
-    if (causal) {
-        const int last = (q_lo + kBQ - 1) / kBK + 1;   // tiles with k_lo <= last row
-        n_tiles = last < n_tiles ? last : n_tiles;
-    }
-    for (int t = 0; t < n_tiles; ++t) {
-        const int k_lo = t * kBK;
-        __syncthreads();                 // the last tile's P and V are read
-        for (int e = tid; e < kBK * d; e += kThreads) {
-            const int r = e / d, c = e - r * d;
-            const int key = k_lo + r;
-            kv_tile[c * kKS + r] = key < skv ? to_float(kb[key * ks.s + c]) : 0.f;
-        }
-        __syncthreads();
-
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        for (int c = 0; c < d; ++c) {
-            const float4 kk = *reinterpret_cast<const float4*>(
-                kv_tile + c * kKS + tx * 4);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float qv = q_tile[(ty * 4 + i) * qst + c];
-                s[i][0] += qv * kk.x;
-                s[i][1] += qv * kk.y;
-                s[i][2] += qv * kk.z;
-                s[i][3] += qv * kk.w;
-            }
-        }
-
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = q_lo + ty * 4 + i;
-            float mt = kNegInf;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int key = k_lo + tx * 4 + j;
-                if (key >= skv || (causal && row < key)) s[i][j] = kNegInf;
-                mt = fmaxf(mt, s[i][j]);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-            const float m_new = fmaxf(m[i], mt);
-            const bool dead = m_new <= kNegInf / 2;
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float p = dead ? 0.f : expf(s[i][j] - m_new);
-                p_tile[(ty * 4 + i) * kPS + tx * 4 + j] = p;
-                sum += p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            const float corr = dead ? 1.f : expf(m[i] - m_new);
-            l[i] = l[i] * corr + sum;
-            m[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < JMAX; ++j) acc[i][j] *= corr;
-        }
-        __syncthreads();                 // K^T is read and P is written
-
-        for (int e = tid; e < kBK * d; e += kThreads) {
-            const int r = e / d, c = e - r * d;
-            const int key = k_lo + r;
-            kv_tile[r * d + c] = key < skv ? to_float(vb[key * vs.s + c]) : 0.f;
-        }
-        __syncthreads();
-
-        for (int kk = 0; kk < kBK; ++kk) {
-            float p[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) p[i] = p_tile[(ty * 4 + i) * kPS + kk];
-#pragma unroll
-            for (int j = 0; j < JMAX; ++j) {
-                const int c = tx + 16 * j;
-                const float vv = c < d ? kv_tile[kk * d + c] : 0.f;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) acc[i][j] += p[i] * vv;
-            }
-        }
-    }
-
-    T* ob = out + b * os.b + h * os.h;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = q_lo + ty * 4 + i;
-        if (row >= sq) continue;
-        // the row's log-sum-exp (m is in scaled units): -inf for a dead row
-        if (tx == 0)
-            lse[static_cast<int64_t>(bh) * sq + row] =
-                m[i] <= kNegInf / 2 ? -__int_as_float(0x7f800000)
-                                    : m[i] + logf(l[i]);
-        const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < JMAX; ++j) {
-            const int c = tx + 16 * j;
-            if (c < d) ob[row * os.s + c] = from_float<T>(acc[i][j] * inv);
-        }
-    }
-}
-
-template <typename T, int JMAX>
-int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int batch, int heads, int kv_heads, int sq, int skv,
-           int d, const int64_t* st, float scale, int causal,
-           cudaStream_t stream) {
-    const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-        vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-    const size_t smem =
-        sizeof(float) * (kBQ * (d + 4) + d * kKS + kBQ * kPS);
-    auto kernel = flash_kernel<T, JMAX>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), lse, heads,
-        heads / kv_heads, sq, skv, d, qs, ks, vs, os, scale, causal);
-    return static_cast<int>(cudaGetLastError());
-}
 
 // --- the backward ---------------------------------------------------------
 // Preprocess, both variants: one warp a row of the [B * H, sq_pad] scratch
@@ -485,8 +317,9 @@ int reduce_launch(const float* part, void* dk, void* dv, int splits,
 
 }  // namespace simt
 
-// --- tf32x3 backward: float32, or bf16 at any other D ----------------------
-// Every product on the tensor cores, mma.sync.m16n8k8 with tf32 operands,
+// --- tf32x3: float32, or bf16 at any other D, both directions ------------
+// The backward first (the forward, flash_fwd_kernel, at the end of the
+// namespace).  Every product on the tensor cores, mma.sync.m16n8k8 with tf32 operands,
 // in the 3xTF32 split (the class of arithmetic PyTorch's float32 SDPA
 // backward runs, CUTLASS's OpMultiplyAddFastF32): an operand x is hi =
 // tf32(x), rounded to 10 mantissa bits (nearest even), and lo = tf32(x -
@@ -1067,6 +900,389 @@ template <int W> int info(int which, int* regs, int* smem) {
     return static_cast<int>(err);
 }
 
+// --- tf32x3 forward: float32, or bf16 at any other D ----------------------
+// The same arithmetic as the backward's (mma.sync m16n8k8 tf32, 3xTF32),
+// with each operand split once a block where the backward splits every
+// fragment it loads (~21 clocks an mma there, measured on an H100).
+//   * A block of FwdShape<W>::kThreads owns one (batch * head, kBQ-row q
+//     tile), heaviest q tiles first under causal; warp w owns rows 16 w ..
+//     16 w + 15 and walks the K / V tiles of kBK keys in a loop, its
+//     running max m, sum l and output O (16 x W float32, W / 2 a thread)
+//     in registers.
+//   * Q is split once, as the block loads it, into hi / lo records in the
+//     A-fragment order: a warp's k-step is two runs of 32 16-byte records
+//     (a0, a1, then a2, a3, hi and lo each), two conflict-free 16-byte
+//     loads a lane.
+//   * K and V tiles come in by cp.async (16 bytes a copy where q, k, v and
+//     d allow, else 4; bf16 is converted on load, exactly: bf16 is a tf32
+//     value) into raw tiles W + 4 floats a row; all threads then split the
+//     tile once into records in the B-fragment order of Q K^T (K) and of
+//     P V with the permuted k (V): one 16-byte load a fragment, both
+//     halves.  The next tile's copies are issued as soon as the split has
+//     read the raw tiles, so they run under this tile's math: two stages,
+//     the raw tiles filling while the records are read.
+//   * S = Q K^T: the three products a k-step, S's sum kept in the tensor
+//     cores (it runs over W <= 256 columns: the CPU emulation of this
+//     arithmetic, tests/test_torch_flash_numerics.py, puts it at ~0.1 of
+//     the float32 limit, round-toward-zero sums included), in two sets of
+//     accumulators, the hi hi products and the small ones, added once a
+//     tile (and twice the independent mma chains of one set).
+//   * The online softmax as the tc kernel's: masks at -1e30 on the tiles
+//     that need them, the row max over the quad by two shuffles, p =
+//     2^(S scale log2e - m scale log2e) by ex2.approx.ftz, the dead-row
+//     guard; l a per-thread partial sum, reduced over the quad at the end.
+//   * O += P V: P split once in registers, its S fragment the A fragment
+//     (k permuted, as the backward's); each of the W / 8 output columns'
+//     eight-column tiles sums the tile's kBK / 8 k-steps x 3 products from
+//     zero in the tensor cores, then O = O corr + that sum in float32: the
+//     long sum over every key never stays in the tensor cores, whose sums
+//     round toward zero.
+//   * Epilogue: lse = (m scale log2e + log2 l) ln 2 (-inf for a dead row),
+//     O / max(l, 1e-30) in the input type through out's strides.
+// Budget a block (FwdShape; bytes of shared memory, all of it records and
+// raw tiles: Q kBQ W 8, K and V kBK W 8 each, raw 2 kBK (W + 4) 4):
+//     W 16 / 32 / 64: 128 rows, 64 keys; 43,008 / 83,968 / 165,888
+//     W 96 / 128: 128 rows, 32 keys; 173,056 / 230,400
+//     W 160: 128 rows, 16 keys; 225,792
+//     W 192 / 256: 64 rows, 16 keys; 172,544 / 229,888
+// (227 KB is 232,448.)  Registers a thread: O W / 2, S kBK / 2 twice, P's
+// hi / lo kBK; ptxas must show no spills at W 64, 128 and 160 (on an
+// H100: 242, 248 and 249 registers, none spilled; W 192 and 256 spill 56
+// bytes).  flash_attention_tf32x3_info reports registers, shared memory
+// and local memory; chip_smoke.py prints them.  Tile widths measured on
+// the card: 64 keys beat 32 at W 64 by 6%; 16 lose to 32 at W 64 and 128;
+// two blocks an SM of 64 rows (16 keys at W 128, 8 at 160) lose 10-30%.
+// What bounds it: the two products, 4 B H D x the kept pairs, at the
+// float32 peak (67 TFLOP/s, the arithmetic it replaces), and at best the
+// same at 3x the dense tf32 rate (its own); mma.sync on tf32 reaches ~322
+// TFLOP/s on an H100 (measured: 0.6 mma a clock an SM, ~25 clocks of
+// latency), so 3x that work can take no less than 1.5x the 3x-tf32 bound.
+template <int W> struct FwdShape {
+    static constexpr int kBQ = W <= 160 ? 128 : 64;    // q rows a block
+    static constexpr int kBK = W <= 64 ? 64 : W <= 128 ? 32 : 16;   // keys
+    static constexpr int kWarps = kBQ / kRows;
+    static constexpr int kThreads = 32 * kWarps;
+    static constexpr int kKs = W / 8;     // k-steps of Q K^T, n-tiles of P V
+    static constexpr int kNt = kBK / 8;   // n-tiles of Q K^T, k-steps of P V
+    static constexpr int kLdr = W + 4;    // a raw tile row, floats
+    static constexpr int kQWords = 2 * kBQ * W;        // hi and lo
+    static constexpr int kKWords = 2 * kBK * W;        // K's, and V's
+    static constexpr int kRawWords = kBK * kLdr;       // K's, and V's
+    static constexpr int kBytes = 4 * (kQWords + 2 * kKWords + 2 * kRawWords);
+    static constexpr int kSplit = kBK * W / 2 / kThreads;   // records a thread
+    static_assert(kBytes <= 232448, "227 KB of shared memory a block");
+    static_assert(kBK * W / 2 % kThreads == 0, "whole records a thread");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+    asm volatile(
+        "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+            static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+        "l"(src), "r"(bytes)
+        : "memory");
+}
+
+// K or V rows lo .. lo + rows - 1 into a raw tile, as load_rows, 16 bytes a
+// copy where vec says every row start is 16-byte aligned and d % 4 == 0
+template <typename T>
+__device__ __forceinline__ void load_raw(float* dst, int ld, const T* src,
+                                         int64_t rs, int lo, int rows,
+                                         int n, int d, int vec, int warp,
+                                         int warps, int lane) {
+    if constexpr (sizeof(T) == 4) {
+        if (vec) {
+            for (int r = warp; r < rows; r += warps) {
+                const int row = lo + r;
+                const bool in = row < n;
+                const T* s = src + (in ? row * rs : 0);
+                for (int c = 4 * lane; c < d; c += 128)
+                    cp_async16(dst + r * ld + c, s + c, in ? 16 : 0);
+            }
+            return;
+        }
+    }
+    load_rows(dst, ld, src, rs, lo, rows, n, d, warp, warps, lane);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(FwdShape<W>::kThreads, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int heads, int group, int sq,
+                 int skv, int d, Strides qs, Strides ks, Strides vs,
+                 Strides os, float scale_log2, int causal, int vec) {
+    using S = FwdShape<W>;
+    constexpr int kBQ = S::kBQ, kBK = S::kBK, kKs = S::kKs, kNt = S::kNt;
+    constexpr int kLdr = S::kLdr, kThreads = S::kThreads;
+    constexpr float kNegInf = -1e30f;
+    extern __shared__ float4 smem4[];
+    uint32_t* q_rec = reinterpret_cast<uint32_t*>(smem4);
+    uint4* k_rec = reinterpret_cast<uint4*>(q_rec + S::kQWords);
+    uint4* v_rec = reinterpret_cast<uint4*>(q_rec + S::kQWords + S::kKWords);
+    float* k_raw = reinterpret_cast<float*>(q_rec + S::kQWords +
+                                            2 * S::kKWords);
+    float* v_raw = k_raw + S::kRawWords;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int bh = blockIdx.x;
+    const int b = bh / heads, h = bh % heads, kvh = h / group;
+    const int q_lo = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
+    const int n_kv = (skv + kBK - 1) / kBK;
+    const int tiles =
+        causal ? min(n_kv, (q_lo + kBQ - 1) / kBK + 1) : n_kv;
+    const T* kb = k + b * ks.b + kvh * ks.h;
+    const T* vb = v + b * vs.b + kvh * vs.h;
+
+    // the raw tiles' columns past d are never copied: zero them once
+    for (int i = tid; i < 2 * S::kRawWords / 4; i += kThreads)
+        reinterpret_cast<float4*>(k_raw)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    auto issue = [&](int t) {
+        load_raw(k_raw, kLdr, kb, ks.s, t * kBK, kBK, skv, d, vec, warp,
+                 S::kWarps, lane);
+        load_raw(v_raw, kLdr, vb, vs.s, t * kBK, kBK, skv, d, vec, warp,
+                 S::kWarps, lane);
+        cp_async_commit();
+    };
+    issue(0);
+
+    // Q, split once into the A-fragment records: row r, column c is lane
+    // (r % 8) 4 + c % 4's fragment register reg = (r % 16) / 8 + 2 ((c %
+    // 8) / 4) of warp r / 16's k-step c / 8; a k-step is two runs of 32
+    // 16-byte records (registers 0-1, then 2-3, hi and lo each), so each
+    // run is one conflict-free 16-byte load a lane; rows >= Sq and columns
+    // >= d are 0
+    const T* qb = q + b * qs.b + h * qs.h;
+    auto put_q = [&](int r, int c, float x) {
+        uint32_t hi, lo;
+        split(x, hi, lo);
+        const int rr = r % kRows, cc = c % 8;
+        const int ln = (rr % 8) * 4 + cc % 4, reg = rr / 8 + 2 * (cc / 4);
+        *reinterpret_cast<uint2*>(
+            q_rec + ((((r / kRows) * kKs + c / 8) * 2 + reg / 2) * 32 + ln) *
+                        4 + 2 * (reg % 2)) = make_uint2(hi, lo);
+    };
+    bool q_vec = false;
+    if constexpr (sizeof(T) == 4) q_vec = vec != 0;
+    if (q_vec) {
+#pragma unroll 4
+        for (int e = tid; e < kBQ * W / 4; e += kThreads) {
+            const int r = e / (W / 4), c = 4 * (e % (W / 4));
+            const int row = q_lo + r;
+            float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (row < sq && c < d)
+                x = *reinterpret_cast<const float4*>(
+                    reinterpret_cast<const float*>(qb) + row * qs.s + c);
+            put_q(r, c, x.x);
+            put_q(r, c + 1, x.y);
+            put_q(r, c + 2, x.z);
+            put_q(r, c + 3, x.w);
+        }
+    } else {
+#pragma unroll 4
+        for (int e = tid; e < kBQ * W; e += kThreads) {
+            const int r = e / W, c = e % W;
+            const int row = q_lo + r;
+            put_q(r, c, row < sq && c < d ? to_float(qb[row * qs.s + c])
+                                          : 0.f);
+        }
+    }
+
+    // this warp's rows r0 = q_lo + 16 warp + g and r0 + 8
+    const int row_lo = q_lo + kRows * warp;
+    const int r0 = row_lo + g;
+    const uint4* qw =
+        reinterpret_cast<const uint4*>(q_rec) + warp * kKs * 64 + lane;
+    float o[kKs][4];
+#pragma unroll
+    for (int w = 0; w < kKs; ++w)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[w][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int t = 0; t < tiles; ++t) {
+        cp_async_wait<0>();
+        __syncthreads();   // tile t is in; the last tile's records are read
+        // split the tile once: K record (kk, n, lane) holds K[8 n + g][8 kk
+        // + t4] and [.. + 4] (B of Q K^T); V record (kk, w, lane) holds V[8
+        // kk + 2 t4][8 w + g] and the next row (B of P V, k permuted)
+#pragma unroll
+        for (int j = 0; j < S::kSplit; ++j) {
+            const int rest = warp + j * S::kWarps;   // record e = 32 rest + lane
+            const float* pk = k_raw + (8 * (rest % kNt) + g) * kLdr +
+                              8 * (rest / kNt) + t4;
+            uint4 rk;
+            split(pk[0], rk.x, rk.y);
+            split(pk[4], rk.z, rk.w);
+            k_rec[32 * rest + lane] = rk;
+            const float* pv = v_raw + (8 * (rest / kKs) + 2 * t4) * kLdr +
+                              8 * (rest % kKs) + g;
+            uint4 rv;
+            split(pv[0], rv.x, rv.y);
+            split(pv[kLdr], rv.z, rv.w);
+            v_rec[32 * rest + lane] = rv;
+        }
+        __syncthreads();   // the records are ready, the raw tiles free
+        if (t + 1 < tiles) issue(t + 1);
+        const int k_lo = t * kBK;
+        // under causal, a tile wholly above this warp's rows keeps nothing
+        if (causal && k_lo > row_lo + kRows - 1) continue;
+
+        // S = Q K^T over the W columns, in the tensor cores' sums
+        float sb[kNt][4], ss[kNt][4];
+#pragma unroll
+        for (int n = 0; n < kNt; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sb[n][i] = ss[n][i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKs; ++kk) {
+            const uint4 a01 = qw[64 * kk], a23 = qw[64 * kk + 32];
+            const uint32_t ah[4] = {a01.x, a01.z, a23.x, a23.z};
+            const uint32_t al[4] = {a01.y, a01.w, a23.y, a23.w};
+#pragma unroll
+            for (int n = 0; n < kNt; ++n) {
+                const uint4 bb = k_rec[(kk * kNt + n) * 32 + lane];
+                const uint32_t bh[2] = {bb.x, bb.z}, bl[2] = {bb.y, bb.w};
+                mma(ss[n], al, bh);
+                mma(ss[n], ah, bl);
+                mma(sb[n], ah, bh);
+            }
+        }
+        // fragment (n, i): row r0 + 8 (i >> 1), key k_lo + 8 n + 2 t4 +
+        // (i & 1)
+        const bool edge =
+            k_lo + kBK > skv || (causal && k_lo + kBK - 1 > row_lo);
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < kNt; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                float s = sb[n][i] + ss[n][i];
+                if (edge) {
+                    const int key = k_lo + 8 * n + 2 * t4 + (i & 1);
+                    if (key >= skv || (causal && key > r0 + 8 * (i >> 1)))
+                        s = kNegInf;
+                }
+                sb[n][i] = s;
+                mx[i >> 1] = fmaxf(mx[i >> 1], s);
+            }
+        float mc[2], corr[2], sum[2] = {0.f, 0.f};
+        bool dead[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            const float m_new = fmaxf(m[r], mx[r]);
+            dead[r] = m_new <= kNegInf / 2;
+            mc[r] = dead[r] ? 0.f : m_new * scale_log2;
+            corr[r] = dead[r] ? 1.f : exp2_ftz(fmaf(m[r], scale_log2, -mc[r]));
+            m[r] = m_new;
+        }
+        // P in float32, split into the A fragments of P V (acc_to_a)
+        uint32_t ph[kNt][4], pl[kNt][4];
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int r = i >> 1;
+                const float p =
+                    dead[r] ? 0.f
+                            : exp2_ftz(fmaf(sb[n][i], scale_log2, -mc[r]));
+                sum[r] += p;
+                sb[n][i] = p;
+            }
+            acc_to_a(sb[n], ph[n], pl[n]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+
+        // O = O corr + P V, each eight-column tile's kBK keys summed from
+        // zero in the tensor cores
+#pragma unroll
+        for (int w = 0; w < kKs; ++w) {
+            float pv[4];
+#pragma unroll
+            for (int kk = 0; kk < kNt; ++kk) {
+                const uint4 bb = v_rec[(kk * kKs + w) * 32 + lane];
+                const uint32_t bh[2] = {bb.x, bb.z}, bl[2] = {bb.y, bb.w};
+                if (kk == 0)
+                    mma(pv, pl[kk], bh, 0.f);
+                else
+                    mma(pv, pl[kk], bh);
+                mma(pv, ph[kk], bl);
+                mma(pv, ph[kk], bh);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                o[w][i] = fmaf(o[w][i], corr[i >> 1], pv[i]);
+        }
+    }
+    cp_async_wait<0>();
+
+    // the rows' log-sum-exp, then O / max(l, 1e-30) through out's strides,
+    // rows below Sq and columns below D
+    T* ob = out + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = r0 + 8 * r;
+        if (t4 == 0 && row < sq)
+            lse[static_cast<int64_t>(bh) * sq + row] =
+                m[r] <= kNegInf / 2
+                    ? -__int_as_float(0x7f800000)
+                    : (m[r] * scale_log2 + log2f(l[r])) * 0.6931471805599453f;
+        l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int w = 0; w < kKs; ++w)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = r0 + 8 * (i >> 1);
+            const int c = 8 * w + 2 * t4 + (i & 1);
+            if (row < sq && c < d)
+                ob[row * os.s + c] = from_float<T>(o[w][i] * l[i >> 1]);
+        }
+}
+
+// strides: 12 int64, the (b, h, s) element strides of q, k, v and out.
+// vec: q, k and v 16-byte aligned at every row (float32 only).
+template <typename T, int W>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, int batch, int heads, int kv_heads, int sq,
+               int skv, int d, const int64_t* st, float scale, int causal,
+               int vec, cudaStream_t stream) {
+    using S = FwdShape<W>;
+    const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+        vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+    const int64_t n_q = (static_cast<int64_t>(sq) + S::kBQ - 1) / S::kBQ;
+    if (n_q > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = flash_fwd_kernel<T, W>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<dim3(batch * heads, static_cast<unsigned>(n_q)), S::kThreads,
+             S::kBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, heads,
+        heads / kv_heads, sq, skv, d, qs, ks, vs, os,
+        scale * 1.4426950408889634f, causal, vec);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int fwd_info(int* regs, int* smem, int* local) {
+    cudaFuncAttributes attr;
+    const cudaError_t err =
+        cudaFuncGetAttributes(&attr, flash_fwd_kernel<float, W>);
+    *regs = attr.numRegs;
+    *smem = FwdShape<W>::kBytes;
+    *local = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(err);
+}
+
 // D's bucket: the W the kernels for head dim d are built at
 __host__ __device__ constexpr int bucket(int d) {
     return d <= 16    ? 16
@@ -1329,14 +1545,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
         wgmma_rs_n128(o, a, b);
     else
         wgmma_rs_n192(o, a, b);
-}
-
-// 2^x on the SFU, subnormal results flushed to 0 (a p below 2^-126 moves
-// no output); exp2f's extra path for them spilled at D 160
-__device__ __forceinline__ float exp2_ftz(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -2235,9 +2443,36 @@ template <int D> int bwd_info(int which, int* regs, int* smem) {
 
 }  // namespace tc
 
+// The forward's tf32x3 kernel for D's bucket (float32, or bf16 at any D)
+template <typename T>
+int tf32x3_fwd_dispatch(const void* q, const void* k, const void* v,
+                        void* out, float* lse, int batch, int heads,
+                        int kv_heads, int sq, int skv, int d,
+                        const int64_t* st, float scale, int causal, int vec,
+                        cudaStream_t s) {
+#define FA_TF32X3_FWD(W)                                                   \
+    case W:                                                                \
+        return tf32x3::launch_fwd<T, W>(q, k, v, out, lse, batch, heads,   \
+                                        kv_heads, sq, skv, d, st, scale,   \
+                                        causal, vec, s);
+    switch (tf32x3::bucket(d)) {
+        FA_TF32X3_FWD(16)
+        FA_TF32X3_FWD(32)
+        FA_TF32X3_FWD(64)
+        FA_TF32X3_FWD(96)
+        FA_TF32X3_FWD(128)
+        FA_TF32X3_FWD(160)
+        FA_TF32X3_FWD(192)
+        FA_TF32X3_FWD(256)
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FA_TF32X3_FWD
+}
+
 // dtype: 0 float32, 1 bfloat16.  strides: 12 int64, the (b, h, s) element
 // strides of q, k, v and out in that order (d is contiguous).  lse: float32
-// [B, H, Sq], contiguous.
+// [B, H, Sq], contiguous.  The tf32x3 kernel (namespace tf32x3, forward).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int batch, int heads, int kv_heads,
@@ -2248,26 +2483,23 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
         d > 256 || sq < 1 || skv < 1 ||
         static_cast<int64_t>(batch) * heads > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    using simt::launch;
     const auto s = static_cast<cudaStream_t>(stream);
-    const bool wide = d > 128;
     switch (dtype) {
-        case 0:
-            return wide ? launch<float, 16>(q, k, v, out, lse, batch, heads,
-                                            kv_heads, sq, skv, d, strides,
-                                            scale, causal, s)
-                        : launch<float, 8>(q, k, v, out, lse, batch, heads,
-                                           kv_heads, sq, skv, d, strides,
-                                           scale, causal, s);
+        case 0: {
+            // 16-byte copies where every row of q, k and v starts on 16 bytes
+            bool vec = d % 4 == 0 &&
+                       (reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+            for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 4 == 0;
+            return tf32x3_fwd_dispatch<float>(q, k, v, out, lse, batch, heads,
+                                              kv_heads, sq, skv, d, strides,
+                                              scale, causal, vec, s);
+        }
         case 1:
-            return wide ? launch<__nv_bfloat16, 16>(q, k, v, out, lse, batch,
-                                                    heads, kv_heads, sq, skv,
-                                                    d, strides, scale, causal,
-                                                    s)
-                        : launch<__nv_bfloat16, 8>(q, k, v, out, lse, batch,
-                                                   heads, kv_heads, sq, skv,
-                                                   d, strides, scale, causal,
-                                                   s);
+            return tf32x3_fwd_dispatch<__nv_bfloat16>(
+                q, k, v, out, lse, batch, heads, kv_heads, sq, skv, d,
+                strides, scale, causal, 0, s);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -2425,6 +2657,24 @@ extern "C" int flash_attention_bwd_wgmma_info(int d, int which, int* regs,
         case 64: return tc::bwd_info<64>(which, regs, smem);
         case 128: return tc::bwd_info<128>(which, regs, smem);
         case 160: return tc::bwd_info<160>(which, regs, smem);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// What the tf32x3 forward for head dim d (float32 inputs) holds: registers
+// a thread, dynamic shared memory a block in bytes, and local memory a
+// thread in bytes (spills; 0 when none).  Returns a CUDA error code.
+extern "C" int flash_attention_tf32x3_info(int d, int* regs, int* smem,
+                                           int* local) {
+    switch (d < 1 || d > 256 ? 0 : tf32x3::bucket(d)) {
+        case 16: return tf32x3::fwd_info<16>(regs, smem, local);
+        case 32: return tf32x3::fwd_info<32>(regs, smem, local);
+        case 64: return tf32x3::fwd_info<64>(regs, smem, local);
+        case 96: return tf32x3::fwd_info<96>(regs, smem, local);
+        case 128: return tf32x3::fwd_info<128>(regs, smem, local);
+        case 160: return tf32x3::fwd_info<160>(regs, smem, local);
+        case 192: return tf32x3::fwd_info<192>(regs, smem, local);
+        case 256: return tf32x3::fwd_info<256>(regs, smem, local);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

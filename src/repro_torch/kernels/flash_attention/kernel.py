@@ -23,16 +23,17 @@ the other:
   TMA needs 16-byte aligned base pointers and strides; an input without
   them raises :class:`ValueError`.
   The backward rounds P and dS to bf16 once for their products.
-* the forward's ``"simt"``: float32, or any other D — scalar float32
-  products, so the float32 path holds 1e-5.
-* the backward's ``"tf32x3"``: float32, or bf16 at any other D — every
-  product on the tensor cores (``mma.sync`` m16n8k8, tf32) in the 3xTF32
-  split (hi + lo of each operand, three products), which keeps the
-  float32 limits (1e-5 against the float32 pullback; the CPU emulation of
-  that arithmetic in ``tests/test_torch_flash_backward.py`` holds it).
+* ``"tf32x3"`` (both directions): float32, or bf16 at any other D —
+  every product on the tensor cores (``mma.sync`` m16n8k8, tf32) in the
+  3xTF32 split (hi + lo of each operand, three products), which keeps the
+  float32 limits (1e-5; the CPU emulations of that arithmetic in
+  ``tests/test_torch_flash_numerics.py`` (forward) and
+  ``tests/test_torch_flash_backward.py`` hold it).  The forward splits
+  each operand once a block: Q as it loads, each K / V tile once into
+  fragment records, P in registers.
 
 Every forward adds one to the ``flash_attention`` counter and one to its
-variant's (``flash_attention_wgmma`` / ``flash_attention_simt``); every
+variant's (``flash_attention_wgmma`` / ``flash_attention_tf32x3``); every
 backward (three kernels: delta, dK/dV, dQ; a fourth, the sum of the dK/dV
 pass's partials, where :func:`dkv_splits` splits that pass) one to
 ``flash_attention_bwd`` and one to ``flash_attention_bwd_wgmma`` /
@@ -58,7 +59,7 @@ WGMMA_HEAD_DIMS = (64, 128, 160)
 
 LAUNCHES = counter("flash_attention")
 VARIANT_LAUNCHES = {"wgmma": counter("flash_attention_wgmma"),
-                    "simt": counter("flash_attention_simt")}
+                    "tf32x3": counter("flash_attention_tf32x3")}
 BWD_LAUNCHES = counter("flash_attention_bwd")
 BWD_VARIANT_LAUNCHES = {"wgmma": counter("flash_attention_bwd_wgmma"),
                         "tf32x3": counter("flash_attention_bwd_tf32x3")}
@@ -83,10 +84,12 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_wgmma_info.argtypes = [i32, p, p]
     lib.flash_attention_bwd_wgmma_info.argtypes = [i32, i32, p, p]
     lib.flash_attention_bwd_tf32x3_info.argtypes = [i32, i32, p, p]
+    lib.flash_attention_tf32x3_info.argtypes = [i32, p, p, p]
     for fn in (lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
                lib.flash_attention_bwd_launch,
                lib.flash_attention_bwd_wgmma_launch,
                lib.flash_attention_wgmma_info,
+               lib.flash_attention_tf32x3_info,
                lib.flash_attention_bwd_wgmma_info,
                lib.flash_attention_bwd_tf32x3_info):
         fn.restype = i32
@@ -101,6 +104,18 @@ def wgmma_info(head_dim: int) -> dict:
         head_dim, ctypes.byref(regs), ctypes.byref(smem)),
         "flash_attention_wgmma_info")
     return {"registers": regs.value, "smem_bytes": smem.value}
+
+
+def fwd_tf32x3_info(head_dim: int) -> dict:
+    """Registers a thread, dynamic shared memory a block and local memory
+    a thread (spills; 0 when none) of the tf32x3 forward built for
+    ``head_dim`` (float32 inputs)."""
+    regs, smem, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.check(_lib().flash_attention_tf32x3_info(
+        head_dim, ctypes.byref(regs), ctypes.byref(smem),
+        ctypes.byref(local)), "flash_attention_tf32x3_info")
+    return {"registers": regs.value, "smem_bytes": smem.value,
+            "local_bytes": local.value}
 
 
 def _bwd_info(fn, name: str, head_dim: int) -> dict:
@@ -129,18 +144,18 @@ def bwd_tf32x3_info(head_dim: int) -> dict:
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel that runs for inputs of ``dtype`` and
-    ``head_dim``: "wgmma" (tensor cores) for bf16 at D 64, 128 or 160,
-    else "simt"."""
+    ``head_dim``: "wgmma" (bf16 tensor cores) for bf16 at D 64, 128 or
+    160, else "tf32x3" (float32 on the tensor cores)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
-    return "simt"
+    return "tf32x3"
 
 
 def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel that runs for inputs of ``dtype`` and
     ``head_dim``: "wgmma" for bf16 at D 64, 128 or 160, else "tf32x3"
-    (float32 on the tensor cores)."""
-    return "wgmma" if variant(dtype, head_dim) == "wgmma" else "tf32x3"
+    (float32 on the tensor cores): the forward's variant."""
+    return variant(dtype, head_dim)
 
 
 # --- the dK/dV pass's split ------------------------------------------------

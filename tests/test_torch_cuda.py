@@ -340,15 +340,24 @@ def _assert_one_launch(before, kind, backward=False):
     # GQA (32 heads on 8), seamless's cross-attention (Sq < Skv, run
     # causal and not)
     (2, 8, 2, 200, 200, 160), (1, 32, 8, 300, 300, 160),
-    (2, 4, 4, 128, 320, 64)])
+    (2, 4, 4, 128, 320, 64),
+    # the tf32x3 variant's edges: each head-dim bucket's tile (64 keys up
+    # to W 64, 32 up to 128, 16 above; 128 q rows, 64 from W 192), D 96
+    # and 192, D 30 (4-byte copies: rows off 16 bytes), one query row and
+    # one key at the wide buckets, ragged Skv, causal Sq > Skv, GQA 6
+    (1, 4, 1, 200, 150, 96), (1, 2, 1, 150, 200, 192), (1, 6, 1, 1, 300, 96),
+    (1, 6, 1, 70, 1, 192), (1, 6, 1, 129, 33, 256), (2, 4, 2, 100, 90, 30),
+    (1, 2, 1, 1, 1, 16), (2, 6, 1, 300, 17, 160)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, sq, skv, d,
                                               causal, dtype):
     """Against attention_ref in float32 on the same inputs: float32 to
     1e-5; bf16 to the rounding of a float32 result to bf16 (2^-8
-    relative) plus 1e-4.  bf16 at D 64 / 128 / 160 runs the tensor-core
-    variant, the rest the SIMT one; the counters say which ran."""
+    relative) plus 1e-4; each row's lse within 1e-5.  bf16 at D 64 / 128 /
+    160 runs the wgmma variant, the rest the tf32x3 one; the counters say
+    which ran.  The model's [B, S, H, D] layout, read and written through
+    strides, gives the same output bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(sq * skv + d)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
                for shape in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d)))
@@ -397,9 +406,9 @@ def test_flash_attention_wgmma_d160_reads_no_column_past_d(cuda, causal):
 
 
 def test_flash_attention_grad_on_the_card(cuda):
-    """Forward and backward on K5 (float32: the SIMT forward, the tf32x3
+    """Forward and backward on K5 (float32: the tf32x3 forward and
     backward): the gradient equals autograd of the plain version within
-    1e-5 (float32 products, or 3xTF32 ones, summed in other orders)."""
+    1e-5 (3xTF32 products summed in other orders)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     shapes = ((2, 4, 100, 32), (2, 2, 100, 32), (2, 2, 100, 32))
     xs = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
@@ -410,6 +419,18 @@ def test_flash_attention_grad_on_the_card(cuda):
     (attention_ref(*b_, causal=True) * w).sum().backward()
     for x, y in zip(a, b_):
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128, 160])
+def test_flash_attention_tf32x3_forward_spills_nothing(cuda, d):
+    """The tf32x3 forward at the buckets the float32 paths run (the
+    families' D 64, qwen2-1.5b's 128, pixtral's 160): no local memory (no
+    spills), at most 255 registers a thread, its shared memory within the
+    227 KB a block may have."""
+    info = fa_kernel.fwd_tf32x3_info(d)
+    assert info["local_bytes"] == 0, info
+    assert 0 < info["registers"] <= 255, info
+    assert 0 < info["smem_bytes"] <= 232448, info
 
 
 def _rel_rms(got, want) -> float:

@@ -4,8 +4,9 @@ CPU tensors) against ``jax.grad`` of the JAX package's ``flash_attention``
 (the Pallas forward in interpret mode, its custom VJP's ``_bwd``), on the
 same inputs made from a seed with numpy, in float32 within 1e-5; the
 log-sum-exp against float64 numpy; the backward op's fake implementation,
-flop formula, layouts and routes.  The kernel itself runs only on the card
-(``tests/test_torch_cuda.py``).
+flop formula, layouts and routes; and the tf32x3 kernels' arithmetic,
+backward and forward, emulated and held to the float32 limits.  The
+kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 import math
 
@@ -166,15 +167,15 @@ def test_forward_and_backward_flop_count(sq, skv, causal):
 def test_backward_variant_by_input():
     """The backward runs wgmma for bf16 at D 64, 128 and 160 (as the
     forward does) and tf32x3 for float32 and for bf16 at any other D
-    (where the forward runs SIMT); each backward variant has its own
+    (where the forward runs tf32x3 too); each backward variant has its own
     counter beside flash_attention_bwd."""
     for d in (64, 128, 160):
         assert p_fa_kernel.bwd_variant(torch.bfloat16, d) == "wgmma"
         assert p_fa_kernel.bwd_variant(torch.float32, d) == "tf32x3"
-        assert p_fa_kernel.variant(torch.float32, d) == "simt"
+        assert p_fa_kernel.variant(torch.float32, d) == "tf32x3"
     for d in (1, 16, 32, 96, 200, 256):
         assert p_fa_kernel.bwd_variant(torch.bfloat16, d) == "tf32x3"
-        assert p_fa_kernel.variant(torch.bfloat16, d) == "simt"
+        assert p_fa_kernel.variant(torch.bfloat16, d) == "tf32x3"
     names = {c.name for c in (p_fa_kernel.BWD_LAUNCHES,
                               *p_fa_kernel.BWD_VARIANT_LAUNCHES.values())}
     assert names == {"flash_attention_bwd", "flash_attention_bwd_wgmma",
@@ -277,6 +278,13 @@ def _tf32_read(x: torch.Tensor) -> torch.Tensor:
     return _float(_bits(x) & 0xFFFFE000)
 
 
+def _split(x: torch.Tensor):
+    """x = hi + lo as the kernels split it: hi = tf32(x), lo = x - hi as
+    the tensor cores read it."""
+    hi = _tf32(x)
+    return hi, _tf32_read(x - hi)
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
     """a @ b with tf32 operands: one product (terms 1, both operands
     rounded), or the kernel's 3xTF32 split (terms 3: hi = tf32(x), lo = x
@@ -287,8 +295,7 @@ def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
     itself), in another order."""
     if terms == 1:
         return _tf32(a) @ _tf32(b)
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    (ah, al), (bh, bl) = _split(a), _split(b)
     return (al @ bh + ah @ bl) + ah @ bh
 
 
@@ -369,6 +376,216 @@ def test_tf32_rounding_is_nearest_even():
     assert torch.equal(_tf32(x), want)
     assert torch.equal(_tf32_read(x), torch.tensor(
         [one, one, one + ulp, one, -one, 0.0]))
+
+
+# ---------------------------------------------------------------------------
+# The tf32x3 forward's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32 rounded toward zero."""
+    y = x.to(torch.float32)
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+         aligned: bool = False) -> torch.Tensor:
+    """One k-step of the tensor cores, c + a @ b over 8 products of tf32
+    values (exact in float64), summed as they sum: rounded toward zero to
+    float32.  With ``aligned``, the harsher model of a unit that first
+    aligns every term to the largest one, dropping the bits below its
+    float32 ulp, then sums (costly: small shapes only)."""
+    if not aligned:
+        return _rz(c.double() + a.double() @ b.double())
+    terms = torch.cat([a.double().unsqueeze(-1) * b.double().unsqueeze(-3),
+                       c.double().unsqueeze(-2)], -2)
+    top = terms.abs().amax(-2, keepdim=True)
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 24)
+    return _rz((torch.trunc(terms / ulp) * ulp).sum(-2))
+
+
+def _fwd_bucket(d: int) -> int:
+    """D's bucket W, as tf32x3::bucket."""
+    return next(w for w in (16, 32, 64, 96, 128, 160, 192, 256) if d <= w)
+
+
+def _tf32_fwd(q, k, v, causal, terms=3, aligned=False):
+    """The tf32x3 forward as the kernel computes it, float32 [B, H, S, D]
+    in, (out, lse) out: D zero-padded to its bucket W; S = Q K^T by k-steps
+    of 8 columns, each the three products al bh, ah bl (one sum) and ah bh
+    (another) kept in the tensor cores' sums (:func:`_mma`), added once;
+    the online softmax over tiles of the kernel's width (64 keys up to W
+    64, 32 up to 128, 16 above) with masks at -1e30, p = 2^fma(s, c, -m c) (c = scale
+    log2e in float32) flushed below 2^-126, the dead-row guard; each
+    tile's P V from zero in the tensor cores over its k-steps of 8 keys,
+    three products each (pl vh, ph vl, ph vh), then O = fma(O, corr, that
+    sum) in float32;
+    lse = (m c + log2 l) ln 2 and O / max(l, 1e-30).  ``terms`` 1: one
+    tf32 product of rounded operands, summed the same way."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    w = _fwd_bucket(d)
+    bk = 64 if w <= 64 else 32 if w <= 128 else 16
+    pad = (0, w - d)
+    qf = torch.nn.functional.pad(q.float(), pad)
+    kf = torch.nn.functional.pad(k.float(), pad).repeat_interleave(h // kh, 1)
+    vf = torch.nn.functional.pad(v.float(), pad).repeat_interleave(h // kh, 1)
+    c = float(np.float32(np.float32(1.0 / math.sqrt(d)) *
+                         np.float32(1.4426950408889634)))
+    if terms == 3:
+        (qh, ql), (kh_, kl) = _split(qf), _split(kf)
+        steps = ((ql, kh_), (qh, kl))
+    else:
+        qh, kh_, steps = _tf32(qf), _tf32(kf), ()
+    big = torch.zeros((b, h, sq, skv))
+    small = torch.zeros((b, h, sq, skv))
+    for lo in range(0, w, 8):
+        sl = slice(lo, lo + 8)
+        for a, bb in steps:
+            small = _mma(small, a[..., sl], bb[..., sl].transpose(-1, -2),
+                         aligned)
+        big = _mma(big, qh[..., sl], kh_[..., sl].transpose(-1, -2), aligned)
+    s_all = big + small
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros((b, h, sq))
+    o = torch.zeros((b, h, sq, w))
+    for k_lo in range(0, skv, bk):
+        keys = torch.arange(k_lo, k_lo + bk)[None, :]
+        s = torch.nn.functional.pad(s_all[..., k_lo:k_lo + bk],
+                                    (0, max(0, k_lo + bk - skv)))
+        vt = torch.nn.functional.pad(vf[:, :, k_lo:k_lo + bk],
+                                     (0, 0, 0, max(0, k_lo + bk - skv)))
+        masked = keys >= skv
+        if causal:
+            masked = masked | (keys > rows)
+        s = s.masked_fill(masked, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        dead = m_new <= -1e30 / 2
+        mc = torch.where(dead, 0.0, m_new * c)
+
+        def exp2(x64):
+            y = torch.exp2(x64.float())
+            return torch.where(y < 2.0 ** -126, 0.0, y)
+
+        p = torch.where(dead[..., None], 0.0,
+                        exp2(s.double() * c - mc.double()[..., None]))
+        corr = torch.where(dead, 1.0, exp2(m.double() * c - mc.double()))
+        l = (l.double() * corr.double() + p.sum(-1).double()).float()
+        if terms == 3:
+            (ph, pl), (vh, vl) = _split(p), _split(vt)
+        pv = torch.zeros_like(o)
+        for kk in range(0, bk, 8):
+            sl = slice(kk, kk + 8)
+            parts = ([(_tf32(p), _tf32(vt))] if terms == 1 else
+                     [(pl, vh), (ph, vl), (ph, vh)])
+            for a, bb in parts:
+                pv = _mma(pv, a[..., sl], bb[..., sl, :], aligned)
+        o = (o.double() * corr.double()[..., None] + pv.double()).float()
+        m = m_new
+    out = o * (1.0 / l.clamp_min(1e-30))[..., None]
+    lse = torch.where(m <= -1e30 / 2, float("-inf"),
+                      ((m.double() * c + torch.log2(l).double()).float() *
+                       math.log(2.0)))
+    return out[..., :d], lse
+
+
+def _fwd_float64(q, k, v, causal):
+    """softmax(q k^T / sqrt(D)) v and its rows' log-sum-exp in float64."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    s = (q.double() @ k.double().repeat_interleave(g, 1).transpose(-1, -2)
+         / math.sqrt(d))
+    if causal:
+        s = s.masked_fill(torch.arange(sq)[:, None] <
+                          torch.arange(skv)[None, :], float("-inf"))
+    return (torch.softmax(s, -1) @ v.double().repeat_interleave(g, 1),
+            torch.logsumexp(s, -1))
+
+
+def _worst(got, want) -> float:
+    """The largest |got - want| over the float32 limit, 1e-5 + 1e-5
+    |want|."""
+    return float(((got.double() - want).abs() /
+                  (1e-5 + 1e-5 * want.abs())).max())
+
+
+#: the float32 cases of tests/test_torch_cuda.py's forward test (their
+#: lengths and head dims; batch and heads cut, GQA kept), and its training
+#: shape's float32 case, [1, 12/2, 512, 128], cut to 6 heads on 1
+FWD_TF32X3_SHAPES = [
+    (1, 1, 1, 128, 128, 32), (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 512, 16),
+    (2, 4, 4, 200, 300, 24), (1, 2, 2, 384, 128, 128), (1, 2, 1, 70, 70, 256),
+    (1, 2, 1, 300, 200, 16), (1, 6, 1, 333, 129, 64), (1, 6, 1, 333, 129, 128),
+    (1, 6, 1, 65, 1, 64), (1, 6, 1, 65, 1, 160), (1, 2, 1, 1, 300, 64),
+    (1, 2, 1, 1, 300, 160), (1, 6, 1, 257, 257, 64), (1, 2, 1, 1000, 777, 64),
+    (1, 2, 1, 1000, 777, 128), (1, 2, 1, 1000, 777, 160),
+    (1, 8, 2, 200, 200, 160), (1, 8, 2, 300, 300, 160),
+    (1, 4, 4, 128, 320, 64), (1, 4, 1, 200, 150, 96), (1, 2, 1, 150, 200, 192),
+    (1, 6, 1, 129, 33, 256), (2, 4, 2, 100, 90, 30), (1, 6, 1, 300, 17, 160),
+    (1, 6, 1, 512, 512, 128)]
+
+
+def _fwd_inputs(shape, causal):
+    b, h, kh, sq, skv, d = shape
+    rng = np.random.default_rng(sq * skv + d + causal)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+            for s in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d))]
+
+
+@pytest.mark.parametrize("shape", FWD_TF32X3_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_forward_arithmetic_holds_the_float32_limit(shape, causal):
+    """The tf32x3 forward's arithmetic, emulated (:func:`_tf32_fwd`),
+    within the card tests' float32 limit, 1e-5 + 1e-5 |x| an element, of a
+    float64 evaluation of the output and of each row's log-sum-exp."""
+    q, k, v = _fwd_inputs(shape, causal)
+    want, want_lse = _fwd_float64(q, k, v, causal)
+    out, lse = _tf32_fwd(q, k, v, causal)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert _worst(out, want) <= 1.0
+    assert _worst(lse, want_lse) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1, 200, 200, 64),
+                                   (1, 2, 1, 1000, 777, 128),
+                                   (1, 8, 2, 300, 300, 160)])
+def test_one_tf32_product_breaks_the_forward_limit(shape):
+    """The same arithmetic with one tf32 product (the plain TF32 the kernel
+    does not use) misses the limit, so the test above tells the two
+    apart."""
+    q, k, v = _fwd_inputs(shape, True)
+    want, _ = _fwd_float64(q, k, v, True)
+    assert _worst(_tf32_fwd(q, k, v, True, terms=1)[0], want) > 1.0
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 2, 1, 70, 70, 256), True),
+                                          ((1, 2, 1, 96, 80, 64), False),
+                                          ((1, 2, 2, 40, 70, 160), True)])
+def test_tf32x3_forward_holds_the_limit_with_aligned_sums(shape, causal):
+    """Under the harsher model of the tensor cores' sums (every term
+    aligned to the largest and cut below its ulp), S's sum kept in the
+    tensor cores and each tile's P V from zero still hold the limit."""
+    q, k, v = _fwd_inputs(shape, causal)
+    want, want_lse = _fwd_float64(q, k, v, causal)
+    out, lse = _tf32_fwd(q, k, v, causal, aligned=True)
+    assert _worst(out, want) <= 1.0 and _worst(lse, want_lse) <= 1.0
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal", [
+    (1, 4, 2, 72, 72, 16, True), (1, 2, 2, 100, 77, 24, False),
+    (1, 2, 1, 130, 130, 64, True), (1, 4, 2, 100, 100, 128, False),
+    (1, 2, 1, 130, 130, 160, True), (1, 2, 1, 64, 192, 96, True)])
+def test_tf32x3_forward_matches_the_jax_op(b, h, kh, sq, skv, d, causal):
+    """The emulated tf32x3 forward against the JAX package's op (its Pallas
+    kernel in interpret mode) on the same inputs, within 1e-5 + 1e-5 |x|:
+    the two float32 evaluations of one function."""
+    q, k, v, _ = _inputs(sq + skv + d, b, h, kh, sq, skv, d)
+    want = np.asarray(r_fa_ops.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal, 128, 128, True))
+    got, _ = _tf32_fwd(*map(torch.as_tensor, (q, k, v)), causal)
+    _close(got, want, **TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -105,13 +105,20 @@ def test_flash_attention_matches_reference(b, h, kh, sq, skv, d, causal):
 
 def test_flash_attention_variant_by_input():
     """The tensor-core variant takes bf16 at D 64, 128 and 160 (pixtral's
-    head dim); float32, and bf16 at any other D, take the SIMT one."""
+    head dim); float32, and bf16 at any other D, take the tf32x3 one
+    (float32 on the tensor cores); each has its own counter beside
+    flash_attention."""
     assert p_fa_kernel.WGMMA_HEAD_DIMS == (64, 128, 160)
     for d in (64, 128, 160):
         assert p_fa_kernel.variant(torch.bfloat16, d) == "wgmma"
-        assert p_fa_kernel.variant(torch.float32, d) == "simt"
-    for d in (16, 96, 192, 256):
-        assert p_fa_kernel.variant(torch.bfloat16, d) == "simt"
+        assert p_fa_kernel.variant(torch.float32, d) == "tf32x3"
+    for d in (1, 16, 24, 96, 192, 256):
+        assert p_fa_kernel.variant(torch.bfloat16, d) == "tf32x3"
+        assert p_fa_kernel.variant(torch.float32, d) == "tf32x3"
+    names = {c.name for c in (p_fa_kernel.LAUNCHES,
+                              *p_fa_kernel.VARIANT_LAUNCHES.values())}
+    assert names == {"flash_attention", "flash_attention_wgmma",
+                     "flash_attention_tf32x3"}
 
 
 def test_flash_attention_causal_q_longer_than_ragged_kv():
