@@ -35,8 +35,9 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   its published widths and depths, random weights from ``--seed``, flash
   attention, one model at a time with its peak memory: granite-moe-1b
   (4 x 2,048-token fused prefill, K5 24 times, and 32 decode steps
-  through ``serve_batch``; tokens dropped by capacity; the MoE spans'
-  device time), zamba2-1.2b and xlstm-350m (forward on 4 x 2,048 tokens,
+  through ``serve_batch``; tokens dropped by capacity, by the MoE
+  layers' tallies in a traced prefill; the MoE spans' device time),
+  zamba2-1.2b and xlstm-350m (forward on 4 x 2,048 tokens,
   zamba2's 7 shared-attention applications on K5; ``serve_batch`` on 4
   prompts of 64 tokens, stepped, and 16 decode steps; decode against
   forward over those positions; the scan spans' device time),
@@ -1569,6 +1570,7 @@ def _family_granite(seed: int, checks: Checks) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build
+    from repro_torch import tracing
     from repro_torch.models import moe as M
     from repro_torch.train.serve import make_prefill_step
     cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
@@ -1597,30 +1599,17 @@ def _family_granite(seed: int, checks: Checks) -> dict:
     out["vs_plain"] = _against_plain(cfg, last_logits, checks,
                                      cfg.n_layers)
     out["vs_plain_s"] = time.perf_counter() - t0
-    # tokens dropped by capacity in one prefill (each MoE layer's routing
-    # counted again beside the call)
-    stats = {"assigned": 0, "dropped": 0}
-    plain_ffn = M.moe_ffn
-
-    def counted(p, x, c):
-        r = M.route(p, x.reshape(-1, x.shape[-1]), c)
-        stats["assigned"] += int(r["mask"].sum())
-        stats["dropped"] += M.dropped(r)
-        return plain_ffn(p, x, c)
-
-    M.moe_ffn = counted
-    try:
-        with torch.no_grad():
-            make_prefill_step(model, max_len)(params, prompt_t)
-    finally:
-        M.moe_ffn = plain_ffn
-    out["capacity"] = M.capacity(FAM_BATCH * FAM_SEQ, cfg)
-    out["assignments"] = stats["assigned"]
-    out["dropped_assignments"] = stats["dropped"]
+    # one prefill traced: the MoE spans' device time, and the tokens
+    # dropped by capacity from the layers' own tallies
     prefill = make_prefill_step(model, max_len)
+    tracing.reset_tallies()
     with torch.no_grad():
         out["profile_prefill"] = _profile(lambda: prefill(params, prompt_t),
                                           1, watch="flash", spans=SPANS)
+    tallied = tracing.tallies()
+    out["capacity"] = M.capacity(FAM_BATCH * FAM_SEQ, cfg)
+    out["assignments"] = tallied["moe.assigned"]
+    out["dropped_assignments"] = tallied["moe.assigned"] - tallied["moe.kept"]
     return out
 
 

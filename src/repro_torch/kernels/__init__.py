@@ -4,7 +4,9 @@ Each kernel wrapper owns one :class:`LaunchCounter` and adds one to it
 exactly where it launches its kernel on a CUDA tensor — never on the plain
 PyTorch path the wrapper takes for CPU tensors.  A run can therefore show
 that a code path really went through the kernels: reset the counters,
-drive the path, read :func:`launch_counts`.
+drive the path, read :func:`launch_counts`.  They count whether or not
+a profiler records; the program's spans and tallies, which count only
+while one does, are in :mod:`repro_torch.tracing`.
 """
 from __future__ import annotations
 

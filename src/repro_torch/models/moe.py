@@ -21,6 +21,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import normal
 from repro_torch.parallel import ctx
@@ -107,34 +108,44 @@ def dropped(r: Dict[str, torch.Tensor]) -> int:
 def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss). Capacity-dropped tokens pass through
-    (the residual connection supplies the identity)."""
-    with torch.profiler.record_function("moe_ffn"):
+    (the residual connection supplies the identity).
+
+    Under a profiler the layer is a ``moe_ffn`` span holding, in order,
+    ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``,
+    and after it tallies ``moe.assigned`` (T k) and ``moe.kept``
+    (assignments a slot took; ``moe.assigned - moe.kept`` is
+    :func:`dropped`), with one kernel outside the spans."""
+    with tracing.span("moe_ffn"):
         b, s, d = x.shape
         t = b * s
         e = cfg.moe.n_experts
         dtype = cfg.cdtype()
-        # the routing is global, as the reference's: on a mesh every rank
-        # routes every token (the tokens gathered, flattened locally: a
-        # DTensor view of the split batch and sequence as one dim leaves
-        # its backward a strided shard), and the experts run split by the
-        # expert constraint
-        xt = ctx.replicated_local(lambda x: x.reshape(t, d), (x,))
-        r = route(params, xt, cfg)
-        token_ids = r["token_ids"]
-        c = token_ids.shape[1]
+        with tracing.span("moe.route"):
+            # the routing is global, as the reference's: on a mesh every
+            # rank routes every token (the tokens gathered, flattened
+            # locally: a DTensor view of the split batch and sequence as
+            # one dim leaves its backward a strided shard), and the experts
+            # run split by the expert constraint
+            xt = ctx.replicated_local(lambda x: x.reshape(t, d), (x,))
+            r = route(params, xt, cfg)
+            token_ids = r["token_ids"]
+            c = token_ids.shape[1]
 
         def dispatch(xt, ids, gm):
             xg = xt[ids.reshape(-1)].reshape(e, c, d).to(dtype)
             return xg * gm[..., None].to(dtype)              # zero padding
 
-        xg = ctx.replicated_local(dispatch, (xt, token_ids,
-                                             r["gathered_mask"]))
-        # expert-parallel dispatch: [E, C, D] split on the expert axis
-        xg = ctx.constrain_experts(xg)
-        gate = ctx.einsum("ecd,edf->ecf", xg, params["w_gate"].to(dtype))
-        up = ctx.einsum("ecd,edf->ecf", xg, params["w_up"].to(dtype))
-        out = ctx.constrain_experts(ctx.einsum(
-            "ecf,efd->ecd", F.silu(gate) * up, params["w_down"].to(dtype)))
+        with tracing.span("moe.dispatch"):
+            xg = ctx.replicated_local(dispatch, (xt, token_ids,
+                                                 r["gathered_mask"]))
+            # expert-parallel dispatch: [E, C, D] split on the expert axis
+            xg = ctx.constrain_experts(xg)
+        with tracing.span("moe.experts"):
+            gate = ctx.einsum("ecd,edf->ecf", xg, params["w_gate"].to(dtype))
+            up = ctx.einsum("ecd,edf->ecf", xg, params["w_up"].to(dtype))
+            out = ctx.constrain_experts(ctx.einsum(
+                "ecf,efd->ecd", F.silu(gate) * up,
+                params["w_down"].to(dtype)))
 
         # combine: scatter-add expert outputs weighted by the router gates
         def combine(out, combine_w, ids):
@@ -145,5 +156,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
                 0, ids.reshape(-1), flat_out)
             return y.reshape(b, s, d)
 
-        y = ctx.replicated_local(combine, (out, r["combine_w"], token_ids))
-        return y, r["aux"].to(torch.float32)
+        with tracing.span("moe.combine"):
+            y = ctx.replicated_local(combine, (out, r["combine_w"],
+                                               token_ids))
+    if tracing.recording():
+        tracing.tally("moe.assigned", t * cfg.moe.top_k)
+        tracing.tally("moe.kept", r["gathered_mask"].sum())
+    return y, r["aux"].to(torch.float32)

@@ -6,8 +6,8 @@ runs them as plain torch: ``lax.scan`` becomes a Python loop (over chunk
 states in :func:`chunked_linear_scan`, over time in the sLSTM).  Dtype
 casts mirror the reference's: decays and chunk states in float32, the
 intra-chunk matrix formed in float32 and cast to the input's dtype.  The
-scans carry ``torch.profiler`` spans (``chunked_linear_scan``,
-``slstm_scan``) so a trace can read their device time.
+scans carry spans (``chunked_linear_scan``, ``slstm_scan``; see
+``repro_torch/tracing.py``) so a trace can read their device time.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import runtime
+from repro_torch import runtime, tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import normal, rmsnorm
 from repro_torch.parallel import ctx
@@ -41,7 +41,7 @@ def chunked_linear_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [b,s,h,p] in x's dtype, the final state [b,h,n,p] in
     float32)."""
-    with torch.profiler.record_function("chunked_linear_scan"):
+    with tracing.span("chunked_linear_scan"):
         b, s, h, p = x.shape
         n = B.shape[-1]
         chunk = min(chunk, s)
@@ -410,7 +410,7 @@ def _slstm_scan(cfg: ArchConfig, xt: torch.Tensor, r: torch.Tensor,
     b, s = xt.shape[:2]
     state = slstm_init_state(cfg, b, device=xt.device)
     outs = []
-    with torch.profiler.record_function("slstm_scan"):
+    with tracing.span("slstm_scan"):
         for t in range(s):
             state, out = _slstm_cell({"r": r, "bias": bias}, xt[:, t],
                                      state)

@@ -9,6 +9,14 @@ caller drops the old state when a step returns.  On a mesh of several
 devices the state and batch are DTensors (``launch.train`` places them):
 each gradient is redistributed to its parameter's placements, so the
 state keeps its layout step after step.
+
+Under a profiler a step is five sibling spans (``repro_torch/tracing.py``):
+``train.forward`` (the model), ``train.loss`` (the chunked CE),
+``train.backward`` (the gradient, with the remat'd blocks' and CE slices'
+recompute, and its accumulation over microbatches), ``train.clip``
+(the clip) and ``train.adamw`` (AdamW and the update's application).
+Without microbatches, ``run.grad_compression``'s cast lies between
+``train.backward`` and ``train.clip``.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import runtime
+from repro_torch import runtime, tracing
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
@@ -99,13 +107,15 @@ def _loss_fn(params: Params, batch: Dict[str, torch.Tensor], model: Model
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     embeds = batch.get("embeds")
     labels = batch["labels"]
-    x, aux = model.forward(params, batch["tokens"], embeds=embeds,
-                           hidden=True)
+    with tracing.span("train.forward"):
+        x, aux = model.forward(params, batch["tokens"], embeds=embeds,
+                               hidden=True)
     # VLM: hidden states cover [patches ++ text]; loss on text positions
     if x.shape[1] != labels.shape[1]:
         x = x[:, -labels.shape[1]:]
-    loss = chunked_cross_entropy(x, params["embed"], labels, model.cfg)
-    total = loss + 0.01 * aux
+    with tracing.span("train.loss"):
+        loss = chunked_cross_entropy(x, params["embed"], labels, model.cfg)
+        total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux}
 
 
@@ -119,9 +129,11 @@ def loss_and_grads(params: Params, batch: Dict[str, torch.Tensor],
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         total, metrics = _loss_fn(live, batch, model)
         leaves = tree_leaves(live)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = iter([torch.zeros_like(p) if g is None else _placed_as(g, p)
-                  for p, g in zip(leaves, grads)])
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = iter([torch.zeros_like(p) if g is None
+                          else _placed_as(g, p)
+                          for p, g in zip(leaves, grads)])
     return ({k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(grads), params))
 
@@ -156,8 +168,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         for i in range(n_micro):
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
             metrics, g = loss_and_grads(state.params, mb, model)
-            tree_map(lambda a, gi: a.add_((compress(gi) / n_micro
-                                           ).to(a.dtype)), grads, g)
+            with tracing.span("train.backward"):
+                tree_map(lambda a, gi: a.add_((compress(gi) / n_micro
+                                               ).to(a.dtype)), grads, g)
             parts.append(metrics)
             del g
         metrics = {k: torch.stack([m[k] for m in parts]).mean()
@@ -165,10 +178,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     else:
         metrics, grads = loss_and_grads(state.params, batch, model)
         grads = tree_map(compress, grads)
-    grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
-    updates, opt = adamw_update(grads, state.opt, state.params, run)
-    del grads
-    params = apply_updates(state.params, updates)
+    with tracing.span("train.clip"):
+        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+    with tracing.span("train.adamw"):
+        updates, opt = adamw_update(grads, state.opt, state.params, run)
+        del grads
+        params = apply_updates(state.params, updates)
     metrics = dict(metrics, grad_norm=gnorm)
     return TrainState(params, opt), metrics
 
