@@ -72,7 +72,14 @@ CUDA C++ source, all at once, for K1-K5; Triton for K0), then:
   gradient's rms distance at most 1.25x SDPA backward's; float32: 1e-4
   relative rms, SDPA's recorded beside it), timed beside the plain
   version and SDPA's backward, at the train shape each of a call's
-  kernels traced, with both variants' registers and shared memory.
+  kernels traced, with both variants' registers and shared memory; the
+  MoE combine (its own row) at the granite prefill cell's 4,096- and
+  512-token batches, bf16, under plain and skewed routing: against its
+  plain version (one bf16 rounding of the float32 sum), two calls
+  bit-equal, timed beside the plain version and the ``index_add_``
+  scatter it replaced, its bytes bound, one call traced by kernel, and
+  its launches on the granite family's ``serve_batch`` (one a layer in
+  the prefill and each decode step, checked).
 * ``search``: a profile trained at the full grid (the 14 Level-2
   micro-benchmarks on the host, ``repro_torch.core.training.
   train_profile``, every fit on the card), every step of every fit
@@ -159,7 +166,8 @@ printing no result, when CUDA is absent or any check fails.
 ``--only whatif`` runs the whatif phase alone, ``--only stores`` times
 K1 and the bloom_probe op at the kvstore shapes, ``--only k5`` times K5
 and its backward beside SDPA at the lm and train shapes and each
-family's, ``--only train``
+family's, ``--only moe_combine`` times the MoE combine's cases,
+``--only train``
 runs the train phase alone and ``--only dryrun`` the dryrun phase (no
 measured times); they print no result line.
 """
@@ -1560,6 +1568,7 @@ def _served(cfg, params, prompts, new, embeds=None, max_len=None
     return {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
             "decode_tok_s": prompts.shape[0] * (new - 1) / run["decode_s"],
             "k5_launches": _k5_moved({}, launches),
+            "moe_combine_launches": launches.get("moe_combine", 0),
             "first_tokens": tokens[:, :8].tolist(), "run": run}
 
 
@@ -1587,6 +1596,12 @@ def _family_granite(seed: int, checks: Checks) -> dict:
     checks.expect(k5.get("flash_attention") == cfg.n_layers and
                   k5.get("flash_attention_wgmma") == cfg.n_layers,
                   f"granite-moe prefill K5 launches {k5}")
+    # the combine kernel once a layer, in the prefill and each decode step
+    checks.expect(out["moe_combine_launches"] ==
+                  cfg.n_layers * (1 + FAM_DECODE),
+                  f"granite-moe serve_batch moe_combine launches "
+                  f"{out['moe_combine_launches']}, expected "
+                  f"{cfg.n_layers * (1 + FAM_DECODE)}")
     checks.expect(bool(torch.isfinite(run["prefill_logits"].float()).all()),
                   "granite-moe prefill logits not finite")
     prompt_t = torch.as_tensor(prompts, device=DEVICE)
@@ -3713,6 +3728,104 @@ def kernel_k5_tf32x3(seed) -> dict:
                  "shapes": rows})
 
 
+#: the MoE combine at granite-moe-1b-a400m's widths (D 1,024, E 32, top-8,
+#: capacity factor 1.25) and the prefill cell's batches: 16 prompts of
+#: 4,096 and of 512 tokens
+MOE_COMBINE_TOKENS = (16 * 4096, 16 * 512)
+#: routings timed: router logits drawn plainly (next to no drops: every
+#: assignment's row is read), and with a per-expert bias that overloads
+#: some experts so that ~40% of assignments find no slot, near the
+#: prefill cell's 39-45%
+MOE_COMBINE_SKEWS = (("uniform", 0.0), ("skewed", 1.75))
+
+
+def moe_combine_cases(seed: int) -> list:
+    """The MoE combine kernel against its plain version and timed beside
+    it and beside the scatter-add it replaced in ``moe_ffn``
+    (``combine_scatter``: the gate gather, the bf16 weighting and
+    ``index_add_``), on the real router's choices, bf16, at each of
+    MOE_COMBINE_TOKENS x MOE_COMBINE_SKEWS; the first case's call traced
+    by kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_combine import kernel, ref
+    from repro_torch.models import moe as M
+    cfg = get_config("granite-moe-1b-a400m")
+    d, e, k = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    rows = []
+    for t in MOE_COMBINE_TOKENS:
+        for label, skew in MOE_COMBINE_SKEWS:
+            logits = (torch.randn((t, e), generator=gen, device=DEVICE) +
+                      skew * torch.randn((1, e), generator=gen,
+                                         device=DEVICE))
+            r = dict(zip(M.ROUTE_KEYS, M._route(logits, cfg)))
+            c = r["token_ids"].shape[1]
+            out = torch.randn((e, c, d), generator=gen,
+                              device=DEVICE).to(torch.bfloat16)
+            args = (out, r["combine_w"], r["gate_idx"], r["token_ids"],
+                    r["gathered_mask"])
+            got = kernel.moe_combine_kernel(*args)
+            bit_equal = torch.equal(got, kernel.moe_combine_kernel(*args))
+            want = ref.moe_combine_ref(out.float(), *args[1:])
+            # one bf16 rounding of the float32 sum, and float32 slack for
+            # fused against separate roundings (tests/test_torch_cuda.py)
+            scale = ref.moe_combine_ref(out.float().abs(),
+                                        r["combine_w"].abs(), *args[2:])
+            err = (got.float() - want).abs()
+            ok = bool((err <= 2.0 ** -8 * want.abs() +
+                       2 * k * 2.0 ** -23 * scale).all())
+            assert ok and bit_equal, \
+                f"moe_combine at T {t} ({label}): max abs err " \
+                f"{float(err.max())}, two calls bit-equal {bit_equal}"
+            max_err = float(err.max())
+            del got, want, scale, err
+            kept = int(r["gathered_mask"].sum())
+            n_bytes = kernel.bytes_needed(d, out.dtype, t, k, e * c, kept)
+            ms = timed_ms(lambda: kernel.moe_combine_kernel(*args))
+            plain_ms = timed_ms(lambda: ref.moe_combine_ref(*args), reps=5,
+                                warmup=1)
+            scatter_ms = timed_ms(lambda: M.combine_scatter(
+                out, r["combine_w"], r["token_ids"], t))
+            row = {"case": f"T {t} ({t // 16} x 16), {label} routing",
+                   "t": t, "c": c, "kept": kept,
+                   "drop_share": 1 - kept / (t * k), "ms": ms,
+                   "plain_ms": plain_ms, "index_add_ms": scatter_ms,
+                   "bytes": n_bytes,
+                   "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                   "roofline": n_bytes / HBM_BYTES_PER_S * 1e3 / ms,
+                   "max_abs_err": max_err,
+                   "vectors_a_thread": kernel.vectors_a_thread(
+                       k, d, out.dtype)}
+            if not rows:
+                prof = _profile(lambda: kernel.moe_combine_kernel(*args), 5)
+                row["traced_ms_by_kernel"] = prof["top_kernels_ms_per_step"]
+            log("moe_combine: " + json.dumps(row))
+            rows.append(row)
+            del out, args, r, logits
+            _free()
+    return rows
+
+
+def kernel_moe_combine(seed: int) -> dict:
+    """The kernels line's row of the MoE combine, from
+    :func:`moe_combine_cases` (the 4,096-token batch with skewed routing,
+    the cell's, is the row's own); its launches are the granite family's,
+    filled in after the families phase."""
+    rows = moe_combine_cases(seed)
+    main = rows[1]
+    return _row("MoE combine (gather)", "cuda",
+                "src/repro_torch/csrc/moe_combine.cu",
+                "none: the reference's combine is XLA's .at[].add "
+                "(src/repro/models/moe.py:92-95), first ported as a bf16 "
+                "index_add_ over every capacity slot",
+                0, main["max_abs_err"], main["ms"], main["plain_ms"],
+                main["bytes"], 0, "fp32", None,
+                {"shape": "granite-moe-1b-a400m: D 1024, E 32, top-8, "
+                          "bf16; " + main["case"],
+                 "index_add_ms": main["index_add_ms"], "shapes": rows})
+
+
 def only_k5(seed: int) -> list:
     """``--only k5``: K5 against its plain version, timed beside SDPA, at
     the lm phase's shape and each family's, in bf16 and float32
@@ -3787,12 +3900,16 @@ def main(argv=None) -> int:
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
     parser.add_argument("--only", choices=["whatif", "stores", "k5",
-                                           "train", "dryrun"],
+                                           "moe_combine", "train",
+                                           "dryrun"],
                         default=None,
                         help="whatif: run that phase alone, without the "
                              "check of its launches; stores: time K1 and "
                              "the bloom_probe op at the kvstore shapes; k5: "
                              "time K5 and SDPA at the lm and family shapes; "
+                             "moe_combine: time the MoE combine beside its "
+                             "plain version and index_add_ at the prefill "
+                             "cell's shapes; "
                              "train: the train phase alone; dryrun: "
                              "the dryrun phase alone (no measured times).  "
                              "Each prints its report but no kernels line "
@@ -3819,6 +3936,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     names = {"stores": [n for n in build.SOURCES if n != "flash_attention"],
              "k5": ["flash_attention"],
+             "moe_combine": ["moe_combine"],
              "train": ["flash_attention"],
              "dryrun": ["flash_attention"]}.get(args.only,
                                                list(build.SOURCES))
@@ -3840,6 +3958,11 @@ def main(argv=None) -> int:
         report["k5"] = only_k5(args.seed)
         for row in report["k5"]:
             log("k5: " + json.dumps(row))
+        _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
+    if args.only == "moe_combine":
+        report["moe_combine"] = moe_combine_cases(args.seed)
         _write_report(args.report, report)
         log(_nvidia_smi())
         return 0
@@ -3900,7 +4023,8 @@ def main(argv=None) -> int:
         torch.Generator(device=DEVICE).manual_seed(args.seed + 6))
     kernels += [kernel_k5_backward(bwd_rows),
                 kernel_k5_backward_tf32x3(bwd_rows),
-                kernel_k5_tf32x3(args.seed)]
+                kernel_k5_tf32x3(args.seed),
+                kernel_moe_combine(args.seed)]
     report["kernels_phase_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -4042,6 +4166,13 @@ def main(argv=None) -> int:
     kernels[8]["launches"] = sum(c.get("flash_attention_tf32x3", 0)
                                  for c in by_path.values())
     kernels[8]["launches_by_path"] = by_path
+    # the MoE combine: one launch a layer in the granite family's prefill
+    # and in each of its decode steps (serve_batch)
+    granite = fam["granite-moe-1b-a400m"]
+    kernels[9]["launches"] = granite["moe_combine_launches"]
+    kernels[9]["launches_by_path"] = {
+        f"granite-moe serve_batch: prefill + {FAM_DECODE} decode steps":
+            granite["moe_combine_launches"]}
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

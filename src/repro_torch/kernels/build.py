@@ -29,7 +29,8 @@ SOURCES = {"sorted_search": "sorted_search.cu",
            "hash_probe": "hash_probe.cu",
            "scan_filter": "scan_filter.cu",
            "bloom_probe": "bloom_probe.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "moe_combine": "moe_combine.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -3,15 +3,24 @@
 
 Per expert, the assigned token ids are picked by a top-capacity selection,
 the tokens gathered to [E, C, D], the expert FFNs applied as batched
-products over the expert axis, and the outputs combined by a scatter-add
-weighted by the router gates.  The expert products stay ``torch.bmm``:
-the reference leaves them to XLA, outside any Pallas kernel.
+products over the expert axis, and the outputs combined, weighted by the
+router gates.  The expert products stay ``torch.bmm``: the reference
+leaves them to XLA, outside any Pallas kernel.
 
 Both top-k selections are tie-free where it matters: the capacity
 priority ``mask * 2T - t`` holds distinct integers (exact in float32 for
 T < 2^23), so ``torch.topk`` picks the reference's ``lax.top_k`` tokens;
-the gate top-k ties only on equal router probabilities.  The combine is
-``index_add_``, whose float order on CUDA is not fixed.
+the gate top-k ties only on equal router probabilities.
+
+The combine takes one of two forms, by what it is given.  On CUDA tensors
+that autograd does not record (serving: prefill and decode run under
+``torch.no_grad``) it is the ``moe_combine`` kernel: each token gathers
+the rows of the slots that took it and sums them in float32, in the order
+of its top-k list, with the float32 gates; no padding slot is read, and
+two runs are bit-equal.  Elsewhere (the CPU, and a forward that autograd
+records, such as a MoE training step) it is :func:`combine_scatter`, the
+reference's scatter-add as a compute-dtype ``index_add_`` over every
+slot, whose float order on CUDA is not fixed.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.moe_combine.ops import moe_combine
 from repro_torch.models.layers import normal
 from repro_torch.parallel import ctx
 
@@ -105,6 +115,23 @@ def dropped(r: Dict[str, torch.Tensor]) -> int:
     return int(r["mask"].sum() - r["gathered_mask"].sum())
 
 
+def combine_scatter(out: torch.Tensor, combine_w: torch.Tensor,
+                    token_ids: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """y [T, D] in ``out``'s dtype: every slot's row of ``out`` [E, C, D],
+    times its token's gate rounded to that dtype, scatter-added into its
+    token's row (a padding slot adds its row times a zero gate)."""
+    e, c, d = out.shape
+    w = torch.gather(combine_w.T, 1, token_ids)              # [E, C]
+    flat_out = (out * w[..., None].to(out.dtype)).reshape(e * c, d)
+    return torch.zeros((n_tokens, d), dtype=out.dtype,
+                       device=out.device).index_add_(
+        0, token_ids.reshape(-1), flat_out)
+
+
+def _records_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss). Capacity-dropped tokens pass through
@@ -147,18 +174,19 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
                 "ecf,efd->ecd", F.silu(gate) * up,
                 params["w_down"].to(dtype)))
 
-        # combine: scatter-add expert outputs weighted by the router gates
-        def combine(out, combine_w, ids):
-            w = torch.gather(combine_w.T, 1, ids)            # [E, C]
-            flat_out = (out * w[..., None].to(dtype)).reshape(e * c, d)
-            y = torch.zeros((t, d), dtype=dtype,
-                            device=out.device).index_add_(
-                0, ids.reshape(-1), flat_out)
+        # combine: the expert outputs weighted by the router gates, by
+        # token (the kernel) or by slot (the scatter-add; see the module)
+        def combine(out, combine_w, gate_idx, ids, gm):
+            if out.is_cuda and not _records_grad(out, combine_w):
+                y = moe_combine(out, combine_w, gate_idx, ids, gm)
+            else:
+                y = combine_scatter(out, combine_w, ids, t)
             return y.reshape(b, s, d)
 
         with tracing.span("moe.combine"):
             y = ctx.replicated_local(combine, (out, r["combine_w"],
-                                               token_ids))
+                                               r["gate_idx"], token_ids,
+                                               r["gathered_mask"]))
     if tracing.recording():
         tracing.tally("moe.assigned", t * cfg.moe.top_k)
         tracing.tally("moe.kept", r["gathered_mask"].sum())

@@ -27,6 +27,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 from repro_torch.kernels.hash_probe import kernel as hp_kernel
 from repro_torch.kernels.hash_probe import ref as hp_ref
 from repro_torch.kernels.hash_probe.ops import DEFAULT_A
+from repro_torch.kernels.moe_combine import kernel as mc_kernel
+from repro_torch.kernels.moe_combine import ref as mc_ref
 from repro_torch.kernels.scan_filter import kernel as sf_kernel
 from repro_torch.kernels.scan_filter import ref as sf_ref
 from repro_torch.kernels.sorted_search import kernel as ss_kernel
@@ -690,6 +692,148 @@ def test_flash_attention_wgmma_rejects_unaligned(cuda, d):
         with pytest.raises(ValueError, match="TMA"):
             fa_kernel.flash_attention_kernel(q, k, k, True)
         assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The MoE combine (kernels/moe_combine)
+# ---------------------------------------------------------------------------
+#: (T, D, E, k): granite-moe-1b-a400m's 4,096-token batch (16 x 4,096
+#: tokens, C 20,480), phi3.5-moe's widths, one decode token; then small
+#: edges: D 8 and 24 (rows of 1 and 3 16-byte vectors in bf16), k 1 and
+#: 3, k over the 8 loads of a round (k 12)
+COMBINE_SHAPES = [(65_536, 1024, 32, 8), (8192, 4096, 16, 2),
+                  (1, 1024, 32, 8), (7, 8, 4, 1), (33, 24, 16, 2),
+                  (100, 64, 8, 3), (50, 40, 16, 12)]
+
+
+def _one_rounding(dtype, x):
+    """The most one round-to-nearest of ``x`` to ``dtype`` can move it:
+    half an ulp, relative above the dtype's normal range (unit roundoff
+    eps / 2) and half the subnormals' spacing below it (fp16's 2^-25)."""
+    info = torch.finfo(dtype)
+    return info.eps / 2 * x.abs() + info.tiny * info.eps / 2
+
+
+def _combine_inputs(dev, t, d, e, k, dtype, seed, capacity_factor=1.25):
+    """The real router's choices for random logits, and expert outputs
+    [E, C, D] of ``dtype``."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    class Cfg:
+        moe = MoEConfig(e, k, capacity_factor)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((t, e), generator=gen, device=dev)
+    r = dict(zip(moe.ROUTE_KEYS, moe._route(logits, Cfg)))
+    c = r["token_ids"].shape[1]
+    out = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
+    return (out, r["combine_w"], r["gate_idx"], r["token_ids"],
+            r["gathered_mask"])
+
+
+@pytest.mark.parametrize("shape", COMBINE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_moe_combine_kernel_matches_plain(cuda, shape, dtype):
+    """Within one rounding of the float32 sum to the output's dtype (the
+    kernel's one rounding: half an ulp, or half fp16's subnormal spacing
+    near zero), plus float32 slack for its fused
+    multiply-adds against the plain version's separate roundings (k ulps of
+    the sum of the terms' magnitudes)."""
+    t, d, e, k = shape
+    if dtype != torch.bfloat16 and t * d > 1 << 25:
+        t //= 8                       # the large shapes' other dtypes, cut
+    args = _combine_inputs(cuda, t, d, e, k, dtype, seed=t + d + e + k)
+    out, rest = args[0], args[1:]
+    before = launch_counts().get("moe_combine", 0)
+    got = mc_kernel.moe_combine_kernel(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_combine"] == before + 1
+    assert got.dtype == dtype and got.shape == (t, d)
+    want = mc_ref.moe_combine_ref(out.float(), *rest)
+    scale = mc_ref.moe_combine_ref(out.float().abs(), rest[0].abs(),
+                                   *rest[1:])
+    bound = (_one_rounding(dtype, want) +
+             2 * k * torch.finfo(torch.float32).eps * scale)
+    err = (got.float() - want).abs()
+    assert (err <= bound).all(), float((err - bound).max())
+
+
+def test_moe_combine_kernel_is_bit_repeatable(cuda):
+    """No atomics: two calls at granite's 4,096-token batch are
+    bit-equal."""
+    args = _combine_inputs(cuda, *COMBINE_SHAPES[0], torch.bfloat16, seed=3)
+    first = mc_kernel.moe_combine_kernel(*args)
+    assert torch.equal(first, mc_kernel.moe_combine_kernel(*args))
+
+
+def test_moe_combine_kernel_reads_no_padding_row(cuda):
+    """Padding slots (gathered_mask 0) poisoned with NaN: the kernel
+    never reads them, so the sum stays finite and equal."""
+    args = list(_combine_inputs(cuda, 4096, 1024, 32, 8, torch.bfloat16,
+                                seed=4, capacity_factor=0.5))
+    want = mc_kernel.moe_combine_kernel(*args)
+    args[0] = args[0].clone()
+    args[0][args[4] == 0] = float("nan")
+    got = mc_kernel.moe_combine_kernel(*args)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_moe_ffn_launches_the_combine_only_without_autograd(cuda):
+    """A prefill under ``torch.no_grad`` launches the combine once a
+    layer; a forward that autograd records keeps the scatter-add (no
+    launch) and still has a gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.models import moe
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    model = build(cfg)
+    params = model.init(0, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 48)), device=cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        model.prefill(params, tokens, 64)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_combine"] == cfg.n_layers
+    layer = {n: p.detach().clone().requires_grad_(True)
+             for n, p in params["layers"][0]["moe"].items()}
+    x = torch.randn((2, 48, cfg.d_model), device=cuda,
+                    dtype=cfg.cdtype())
+    reset_launch_counts()
+    y, aux = moe.moe_ffn(layer, x, cfg)
+    (y.float().sum() + aux).backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_combine"] == 0
+    assert layer["w_down"].grad is not None
+    with torch.no_grad():
+        moe.moe_ffn(layer, x, cfg)
+    assert launch_counts()["moe_combine"] == 1
+
+
+def test_moe_combine_kernel_rejects_what_it_does_not_take(cuda):
+    """Shapes, dtypes and layouts it does not handle raise, and nothing
+    launches (no fallback)."""
+    out, w, gi, ti, gm = _combine_inputs(cuda, 64, 64, 8, 2,
+                                         torch.bfloat16, seed=5)
+    off = torch.empty(out.numel() + 1, dtype=out.dtype, device=cuda)
+    off = off[1:].view(out.shape)                # 2 bytes off 16
+    off.copy_(out)
+    bad = [(out[..., :12].contiguous(), w, gi, ti, gm),      # D 12
+           (out.to(torch.int32), w, gi, ti, gm),             # dtype
+           (out.transpose(0, 1), w, gi, ti, gm),             # layout
+           (off, w, gi, ti, gm),                             # alignment
+           (out, w.double(), gi, ti, gm),
+           (out, w, gi.to(torch.int32), ti, gm),
+           (out, w[:-1], gi, ti, gm),                        # T
+           (out[:-1].contiguous(), w, gi, ti, gm[:-1]),      # E
+           (out, w, gi, ti, gm.cpu())]                       # device
+    before = launch_counts().get("moe_combine", 0)
+    for args in bad:
+        with pytest.raises(ValueError):
+            mc_kernel.moe_combine_kernel(*args)
+    assert launch_counts().get("moe_combine", 0) == before
 
 
 # ---------------------------------------------------------------------------
