@@ -25,7 +25,8 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """A model architecture; families: dense|moe|ssm|hybrid|audio|vlm."""
+    """A model architecture; families:
+    dense|moe|ssm|hybrid|granite_hybrid|audio|vlm."""
 
     arch_id: str
     family: str
@@ -42,6 +43,7 @@ class ArchConfig:
     ssm_state: int = 0                     # mamba2 state size N
     ssm_expand: int = 2                    # d_inner = expand * d_model
     ssm_chunk: int = 128                   # SSD chunk length
+    ssm_head_dim: int = 64                 # mamba2 head dim (d_inner / heads)
     #: hybrid (zamba2): apply the shared attention block every k-th layer
     shared_attn_every: int = 0
     #: xlstm: every k-th layer is an sLSTM block (rest mLSTM); 0 = all mLSTM
@@ -50,6 +52,20 @@ class ArchConfig:
     n_encoder_layers: int = 0
     #: vlm (pixtral): number of prepended image-patch embeddings
     n_patches: int = 0
+    #: granite_hybrid: each layer's token mixer, "mamba" or "attention"
+    layer_types: Tuple[str, ...] = ()
+    #: width of the shared expert an MoE layer adds to its output (0: none)
+    shared_expert_ff: int = 0
+    #: rotary position embeddings on q and k (False: NoPE)
+    rope: bool = True
+    #: Granite's muP multipliers; the defaults leave a model unscaled: the
+    #: embeddings times ``embedding_multiplier``, each residual branch times
+    #: ``residual_multiplier``, the logits over ``logits_scaling``, and the
+    #: softmax of q k^T times ``attention_multiplier`` (0: 1/sqrt(head_dim))
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     max_seq: int = 1 << 20
@@ -78,7 +94,7 @@ class ArchConfig:
     @property
     def supports_long_context(self) -> bool:
         """Sub-quadratic decode state => long_500k applies (ssm/hybrid)."""
-        return self.family in ("ssm", "hybrid")
+        return self.family in ("ssm", "hybrid", "granite_hybrid")
 
     @property
     def has_decode(self) -> bool:

@@ -4,17 +4,21 @@ on one GPU (the port of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch <id> \\
         [--smoke] [--device cpu] --requests 8 --prompt-len 16 --max-new 16
 
-Any of the ten architectures of ``repro_torch.configs``.  One card, no
+Any of the ten architectures of ``repro_torch.configs`` and its
+``PORT_ONLY`` ones.  One card, no
 mesh.  Weights are drawn from a seeded ``torch.Generator`` on the device:
 JAX's ``PRNGKey(0)`` stream cannot be replayed in PyTorch, so these are
 not the reference's weights (pass ``params``, e.g. from
 :func:`repro_torch.models.convert.params_from_reference`, to serve given
-ones).  The transformer families (dense, moe, vlm) prefill with their
-fused prefill, the path that runs kernel K5 under ``attn_impl="flash"``;
-the others (hybrid, ssm, audio) prefill by stepping the decode closure
-over the prompt, as the reference does for every family — the
-encoder-decoder against an all-zero cross-attention cache of 8 source
-positions, as in the reference.
+ones).  The transformer families (dense, moe, vlm) and Granite 4.0-H
+(``granite_hybrid``, an architecture of the port alone) prefill with
+their fused prefill, the path that runs kernel K5 under
+``attn_impl="flash"`` (Granite 4.0-H's Mamba2 layers run the prompt
+through the chunked scan once and keep its final state); the others
+(hybrid, ssm, audio) prefill by stepping the decode closure over the
+prompt, as the reference does for every family — the encoder-decoder
+against an all-zero cross-attention cache of 8 source positions, as in
+the reference.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """Shared building blocks: RMSNorm, RoPE, GQA attention, SwiGLU MLP (the
-port of ``repro/models/layers.py``).
+port of ``repro/models/layers.py``), and Granite's muP multipliers where a
+configuration sets them (the embeddings, the attention's scale, the
+logits; the residual's is the block's).
 
 Plain functions on tensors: parameters are nested dicts of tensors with the
 reference's keys and shapes.  A layer stack is a Python list of per-layer
@@ -130,9 +132,13 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ArchConfig,
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)
-    if rope:
+    if rope and cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attention_multiplier:
+        # the attention paths scale q k^T by 1/sqrt(head_dim) (kernel K5
+        # too): q carries the rest of the multiplier
+        q = q * (cfg.attention_multiplier * math.sqrt(q.shape[-1]))
     return (ctx.constrain_heads(q), ctx.constrain_heads(k),
             ctx.constrain_heads(v))
 
@@ -351,8 +357,11 @@ def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig
     # (gathered): DTensor's lookup in a vocab-sharded table cannot be
     # differentiated, and it places the lookup's backward differently
     # from one torch version to the next
-    return ctx.batch_local(lambda tok, table: table[tok.long()], (tokens,),
-                           (params["tok"],)).to(cfg.cdtype())
+    x = ctx.batch_local(lambda tok, table: table[tok.long()], (tokens,),
+                        (params["tok"],)).to(cfg.cdtype())
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig
@@ -360,5 +369,9 @@ def unembed(params: Params, x: torch.Tensor, cfg: ArchConfig
     dtype = cfg.cdtype()
     x = ctx.enter_block(x)
     if cfg.tie_embeddings:
-        return ctx.einsum("bsd,vd->bsv", x, params["tok"].to(dtype))
-    return ctx.einsum("bsd,dv->bsv", x, params["head"].to(dtype))
+        logits = ctx.einsum("bsd,vd->bsv", x, params["tok"].to(dtype))
+    else:
+        logits = ctx.einsum("bsd,dv->bsv", x, params["head"].to(dtype))
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits

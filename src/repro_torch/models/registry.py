@@ -8,7 +8,8 @@
     logits, cache = model.decode_step(params, cache, token, pos)
 
 Families: ``dense``/``moe``/``vlm`` (transformer, with a fused prefill),
-``hybrid`` (zamba2), ``ssm`` (xLSTM), ``audio`` (encoder-decoder).
+``granite_hybrid`` (Granite 4.0-H, with a fused prefill), ``hybrid``
+(zamba2), ``ssm`` (xLSTM), ``audio`` (encoder-decoder).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, hybrid, transformer, xlstm
+from repro_torch.models import (encdec, granite_hybrid, hybrid, transformer,
+                                xlstm)
 
 Params = Dict[str, Any]
 
@@ -50,7 +52,8 @@ class Model:
 
     @property
     def has_prefill(self) -> bool:
-        """Whether the family has a fused prefill (dense, moe, vlm)."""
+        """Whether the family has a fused prefill (dense, moe, vlm,
+        granite_hybrid)."""
         return self._prefill is not None
 
     def prefill(self, params, tokens, max_len, embeds=None):
@@ -64,6 +67,10 @@ def build(cfg: ArchConfig) -> Model:
         return Model(cfg, transformer.init_params, transformer.forward,
                      transformer.init_cache, transformer.decode_step,
                      transformer.prefill)
+    if cfg.family == "granite_hybrid":
+        return Model(cfg, granite_hybrid.init_params, granite_hybrid.forward,
+                     granite_hybrid.init_cache, granite_hybrid.decode_step,
+                     granite_hybrid.prefill)
     if cfg.family == "hybrid":
         return Model(cfg, hybrid.init_params, hybrid.forward,
                      hybrid.init_cache, hybrid.decode_step)

@@ -7,7 +7,8 @@ states in :func:`chunked_linear_scan`, over time in the sLSTM).  Dtype
 casts mirror the reference's: decays and chunk states in float32, the
 intra-chunk matrix formed in float32 and cast to the input's dtype.  The
 scans carry spans (``chunked_linear_scan``, ``slstm_scan``; see
-``repro_torch/tracing.py``) so a trace can read their device time.
+``repro_torch/tracing.py``) so a trace can read their device time, and so
+does each Mamba2 mixer (``mamba2``, from ``in_proj`` to ``out_proj``).
 """
 from __future__ import annotations
 
@@ -33,17 +34,27 @@ def _clip_exp(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Shared chunked linear-recurrence scan:
 #   h_t = exp(loga_t) h_{t-1} + B_t (x_t)^T ;  y_t = C_t . h_t
-# shapes: x [b,s,h,p], B/C [b,s,h,n], loga [b,s,h]
+# shapes: x [b,s,h,p], B/C [b,s,g,n] (g groups of h/g heads each: g = h
+# for per-head B and C, 1 for Mamba2's one group), loga [b,s,h]
 # ---------------------------------------------------------------------------
+#: elements of the per-head [chunk, chunk] decay and matrix the scan holds
+#: at once: the intra-chunk part and the chunk states take the chunks this
+#: many elements at a time (a 32k-token Mamba2 prompt with 128 heads and
+#: chunks of 256 would need 4.3 GB a float32 tensor in one piece)
+SCAN_BLOCK_ELEMENTS = 1 << 27
+
+
 def chunked_linear_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                         loga: torch.Tensor, chunk: int,
                         h0: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [b,s,h,p] in x's dtype, the final state [b,h,n,p] in
-    float32)."""
+    float32).  Head ``i`` reads group ``i // (h / g)`` of B and C, whose
+    product C B^T within a chunk is formed once a group."""
     with tracing.span("chunked_linear_scan"):
         b, s, h, p = x.shape
-        n = B.shape[-1]
+        g, n = B.shape[-2:]
+        hg = h // g
         chunk = min(chunk, s)
         s_pad = -(-s // chunk) * chunk
         if s_pad != s:  # pad to a chunk multiple (masked by zero decay-in)
@@ -52,26 +63,36 @@ def chunked_linear_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             loga = F.pad(loga, (0, 0, 0, pad))
         nc = s_pad // chunk
         xc = x.reshape(b, nc, chunk, h, p)
-        Bc = B.reshape(b, nc, chunk, h, n)
-        Cc = C.reshape(b, nc, chunk, h, n)
+        Bc = B.reshape(b, nc, chunk, g, n)
+        Cc = C.reshape(b, nc, chunk, g, n)
         la = loga.reshape(b, nc, chunk, h).to(torch.float32)
 
         cum = torch.cumsum(la, dim=2)                       # [b,nc,cl,h]
         total = cum[:, :, -1]                               # [b,nc,h]
-
-        # --- intra-chunk (quadratic within the chunk, like attention) ----
-        G = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)      # [b,nc,h,cl,cl]
         ii = torch.arange(chunk, device=x.device)
         causal = ii[:, None] >= ii[None, :]
         cum_t = cum.permute(0, 1, 3, 2)                     # [b,nc,h,cl]
-        decay = _clip_exp(cum_t[..., :, None] - cum_t[..., None, :])
-        M = (G.to(torch.float32) * decay * causal).to(x.dtype)
-        y_intra = torch.einsum("bchij,bcjhp->bcihp", M, xc)
-
-        # --- chunk states ------------------------------------------------
         w_out = _clip_exp(total[:, :, None, :] - cum)       # [b,nc,cl,h]
-        states = torch.einsum("bcjhn,bcjhp->bchnp",
-                              w_out.to(x.dtype)[..., None] * Bc, xc)
+
+        # --- intra-chunk (quadratic within the chunk, like attention) and
+        # the chunk states, a block of chunks at a time -------------------
+        step = max(1, SCAN_BLOCK_ELEMENTS // (b * h * chunk * chunk))
+        y_intra, states = [], []
+        for c0 in range(0, nc, step):
+            k = slice(c0, c0 + step)
+            nk = min(step, nc - c0)
+            G = torch.einsum("bcign,bcjgn->bcgij", Cc[:, k], Bc[:, k])
+            decay = _clip_exp(cum_t[:, k, :, :, None] -
+                              cum_t[:, k, :, None, :])  # [b,nk,h,cl,cl]
+            M = (G.to(torch.float32)[:, :, :, None] *
+                 decay.view(b, nk, g, hg, chunk, chunk) * causal
+                 ).to(x.dtype).reshape(b, nk, h, chunk, chunk)
+            y_intra.append(torch.einsum("bchij,bcjhp->bcihp", M, xc[:, k]))
+            wB = (w_out[:, k].to(x.dtype).view(b, nk, chunk, g, hg, 1) *
+                  Bc[:, k, :, :, None]).reshape(b, nk, chunk, h, n)
+            states.append(torch.einsum("bcjhn,bcjhp->bchnp", wB, xc[:, k]))
+        y_intra = torch.cat(y_intra, dim=1)
+        states = torch.cat(states, dim=1)                   # [b,nc,h,n,p]
 
         # --- inter-chunk recurrence over nc --------------------------------
         hc = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
@@ -85,9 +106,10 @@ def chunked_linear_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
         # --- inter-chunk contribution --------------------------------------
         w_in = _clip_exp(cum)
-        y_inter = torch.einsum("bcihn,bchnp->bcihp", Cc,
-                               h_prevs.to(x.dtype)) * \
-            w_in.to(x.dtype)[..., None]
+        y_inter = torch.einsum(
+            "bcign,bcgknp->bcigkp", Cc,
+            h_prevs.to(x.dtype).view(b, nc, g, hg, n, p)).reshape(
+                b, nc, chunk, h, p) * w_in.to(x.dtype)[..., None]
         y = (y_intra + y_inter).reshape(b, s_pad, h, p)[:, :s]
         return y, hc
 
@@ -107,8 +129,9 @@ def linear_scan_step(h: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
 # Mamba2 block
 # ---------------------------------------------------------------------------
 def mamba2_dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, head dim, heads, state size N)."""
     d_in = cfg.ssm_expand * cfg.d_model
-    headdim = 64
+    headdim = cfg.ssm_head_dim
     n_heads = d_in // headdim
     return d_in, headdim, n_heads, cfg.ssm_state
 
@@ -173,38 +196,54 @@ MIX_WEIGHTS = ("conv_w", "conv_b", "dt_bias", "A_log", "D_skip",
                "norm_scale")
 
 
-def _mamba2_mix(cfg: ArchConfig, z, xin, Bv, Cv, dt, *weights
-                ) -> torch.Tensor:
+def _mamba2_mix(cfg: ArchConfig, z, xin, Bv, Cv, dt, *weights):
     """The conv, the chunked scan, the skip, the gate and the norm over
-    the projections [b, s, .]: the gated, normed [b, s, d_in]."""
+    the projections [b, s, .]: (the gated, normed [b, s, d_in], the scan's
+    final state [b, h, N, hd] in float32, the conv's last inputs [b, W-1,
+    d_in + 2N])."""
     params = dict(zip(MIX_WEIGHTS, weights))
     b, s, _ = xin.shape
     d_in, hd, h, n = mamba2_dims(cfg)
     dtype = cfg.cdtype()
-    conv_out, _ = _causal_conv(torch.cat([xin, Bv, Cv], dim=-1),
-                               params["conv_w"].to(dtype),
-                               params["conv_b"].to(dtype))
+    conv_out, conv_state = _causal_conv(torch.cat([xin, Bv, Cv], dim=-1),
+                                        params["conv_w"].to(dtype),
+                                        params["conv_b"].to(dtype))
     xin, Bv, Cv = torch.split(conv_out, [d_in, n, n], dim=-1)
     dt, loga = _mamba2_dt(params, dt)                       # [b,s,h]
     xh = xin.reshape(b, s, h, hd) * dt[..., None].to(dtype)
-    Bh = Bv[:, :, None, :].expand(b, s, h, n).to(dtype)
-    Ch = Cv[:, :, None, :].expand(b, s, h, n).to(dtype)
-    y, _ = chunked_linear_scan(xh, Bh, Ch, loga, cfg.ssm_chunk)
+    # one group: every head reads the same B and C
+    y, h_state = chunked_linear_scan(xh, Bv[:, :, None, :].to(dtype),
+                                     Cv[:, :, None, :].to(dtype), loga,
+                                     cfg.ssm_chunk)
     y = y + params["D_skip"][None, None, :, None].to(dtype) * \
         xin.reshape(b, s, h, hd)
     y = y.reshape(b, s, d_in) * F.silu(z)
-    return rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+    return (rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps),
+            h_state, conv_state)
+
+
+def mamba2_prefill(params: Params, x: torch.Tensor, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, Params]:
+    """The mixer over a prompt x [b, s, d] in one pass: (its output, the
+    decode state after the prompt, as :func:`mamba2_step` takes it: the
+    scan's final state ``h`` and the conv's last inputs ``conv``).  A
+    ``mamba2`` span.  The projections and ``out_proj`` split as the rules
+    place their weights; the token mixing on each rank's shard of the
+    batch."""
+    with tracing.span("mamba2"):
+        y, h_state, conv_state = ctx.batch_local(
+            functools.partial(_mamba2_mix, cfg),
+            _mamba2_project(params, x, cfg),
+            [params[k] for k in MIX_WEIGHTS], n_out=3)
+        out = ctx.einsum("bse,ed->bsd", y,
+                         params["out_proj"].to(cfg.cdtype()))
+    return out, {"h": h_state, "conv": conv_state}
 
 
 def mamba2_forward(params: Params, x: torch.Tensor, cfg: ArchConfig
                    ) -> torch.Tensor:
-    """The projections and ``out_proj`` split as the rules place their
-    weights; the token mixing on each rank's shard of the batch."""
-    y = ctx.batch_local(functools.partial(_mamba2_mix, cfg),
-                        _mamba2_project(params, x, cfg),
-                        [params[k] for k in MIX_WEIGHTS])
-    return ctx.einsum("bse,ed->bsd", y,
-                      params["out_proj"].to(cfg.cdtype()))
+    """:func:`mamba2_prefill`'s output, its state left."""
+    return mamba2_prefill(params, x, cfg)[0]
 
 
 def mamba2_init_state(cfg: ArchConfig, batch: int, device=None) -> Params:
@@ -242,12 +281,14 @@ def _mamba2_step_mix(cfg: ArchConfig, z, xin, Bv, Cv, dt, h_state,
 
 def mamba2_step(params: Params, x: torch.Tensor, state: Params,
                 cfg: ArchConfig) -> Tuple[torch.Tensor, Params]:
-    """One-token decode. x [b,1,d]."""
-    y, h_new, conv_state = ctx.batch_local(
-        functools.partial(_mamba2_step_mix, cfg),
-        (*_mamba2_project(params, x, cfg), state["h"], state["conv"]),
-        [params[k] for k in MIX_WEIGHTS], n_out=3)
-    out = ctx.einsum("bse,ed->bsd", y, params["out_proj"].to(cfg.cdtype()))
+    """One-token decode. x [b,1,d].  A ``mamba2`` span."""
+    with tracing.span("mamba2"):
+        y, h_new, conv_state = ctx.batch_local(
+            functools.partial(_mamba2_step_mix, cfg),
+            (*_mamba2_project(params, x, cfg), state["h"], state["conv"]),
+            [params[k] for k in MIX_WEIGHTS], n_out=3)
+        out = ctx.einsum("bse,ed->bsd", y,
+                         params["out_proj"].to(cfg.cdtype()))
     return out, {"h": h_new, "conv": conv_state}
 
 

@@ -4,8 +4,10 @@
 ``make_serve_step`` returns the one-token decode closure;
 ``make_prefill_step`` the fused prefill (kernel K5 when
 ``cfg.attn_impl == "flash"``); ``prefill`` is what a server runs before
-decoding, the fused prefill or the prompt stepped through the decode
-closure (``step_prompt``); ``generate`` is the batched greedy loop.
+decoding: the fused prefill where the family has one (dense, moe, vlm,
+granite_hybrid), else the prompt stepped through the decode closure
+(``step_prompt``; hybrid, ssm, audio); ``generate`` is the batched greedy
+loop.
 PyTorch runs eagerly, so the reference's ``jax.jit`` has no counterpart.
 """
 from __future__ import annotations
@@ -63,9 +65,9 @@ def prefill(model: Model, params: Params, prompt: torch.Tensor,
             max_len: int, embeds: Optional[torch.Tensor] = None,
             **cache_kw):
     """The prompt's last-token logits and the cache to decode from: the
-    fused prefill where the family has one (dense, moe, vlm; a VLM's
-    patch ``embeds`` go before the tokens), else the prompt stepped
-    into ``model.init_cache(B, max_len, **cache_kw)`` (``src_len`` for
+    fused prefill where the family has one (dense, moe, vlm,
+    granite_hybrid; a VLM's patch ``embeds`` go before the tokens), else
+    the prompt stepped into ``model.init_cache(B, max_len, **cache_kw)`` (``src_len`` for
     the encoder-decoder)."""
     if model.has_prefill:
         return model.prefill(params, prompt, max_len, embeds=embeds)

@@ -744,8 +744,30 @@ def test_moe_combine_kernel_matches_plain(cuda, shape, dtype):
     t, d, e, k = shape
     if dtype != torch.bfloat16 and t * d > 1 << 25:
         t //= 8                       # the large shapes' other dtypes, cut
-    args = _combine_inputs(cuda, t, d, e, k, dtype, seed=t + d + e + k)
+    _assert_combine_matches_plain(
+        _combine_inputs(cuda, t, d, e, k, dtype, seed=t + d + e + k))
+
+
+@pytest.mark.parametrize("t, capacity_factor", [(32_768, 0.5),
+                                                 (4096, 72 / 10)])
+def test_moe_combine_kernel_at_granite_4_h_small_widths(cuda, t,
+                                                        capacity_factor):
+    """Top-10 of 72 experts at D 4,096 (two rounds of the kernel's 8
+    loads a token, k over 8): the 32,768-token prompt of its prefill cell
+    with half the assignments' room (drops: random logits route evenly,
+    so the cell's factor 1.25 drops none of them here), and 4,096 tokens
+    with a capacity that holds every assignment (none; C = T, so [E, C,
+    D] is 2.4 GB), within the bound of the test above."""
+    args = _combine_inputs(cuda, t, 4096, 72, 10, torch.bfloat16,
+                           seed=10, capacity_factor=capacity_factor)
+    kept = int(args[4].sum())
+    assert (kept < t * 10) == (capacity_factor < 7)
+    _assert_combine_matches_plain(args)
+
+
+def _assert_combine_matches_plain(args):
     out, rest = args[0], args[1:]
+    dtype, (t, k), d = out.dtype, rest[1].shape, out.shape[2]
     before = launch_counts().get("moe_combine", 0)
     got = mc_kernel.moe_combine_kernel(*args)
     torch.cuda.synchronize()

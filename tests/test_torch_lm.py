@@ -25,7 +25,8 @@ from repro.kernels.flash_attention.ref import attention_ref as r_attention
 from repro.models import build as r_build
 from repro.train import serve as r_serve
 from repro_torch import runtime
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import (ARCH_IDS, ArchConfig, get_config,
+                                 get_smoke_config)
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import kernel as p_fa_kernel
 from repro_torch.kernels.flash_attention import ops as p_fa_ops
@@ -302,14 +303,19 @@ def test_decode_matches_forward():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("which", ["config", "smoke"])
 def test_configs_match_reference(which):
-    """All ten architectures, field for field; an unknown id raises
-    KeyError, as in the reference."""
+    """All ten architectures, field for field; the fields the port alone
+    has (Granite 4.0-H's) hold their defaults for them; an unknown id
+    raises KeyError, as in the reference."""
     assert ARCH_IDS == r_arch_ids and len(ARCH_IDS) == 10
+    defaults = {f.name: f.default for f in dataclasses.fields(ArchConfig)}
     for arch in ARCH_IDS:
         get_r = r_get_config if which == "config" else r_get_smoke
         get_p = get_config if which == "config" else get_smoke_config
-        assert dataclasses.asdict(get_p(arch)) == \
-            dataclasses.asdict(get_r(arch))
+        port = dataclasses.asdict(get_p(arch))
+        ref = dataclasses.asdict(get_r(arch))
+        assert {k: port[k] for k in ref} == ref
+        assert {k: port[k] for k in port.keys() - ref.keys()} == \
+            {k: defaults[k] for k in port.keys() - ref.keys()}
     full = get_config(ARCH)
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
             full.d_ff, full.vocab_size, full.resolved_head_dim) == \
