@@ -167,7 +167,7 @@ printing no result, when CUDA is absent or any check fails.
 K1 and the bloom_probe op at the kvstore shapes, ``--only k5`` times K5
 and its backward beside SDPA at the lm and train shapes and each
 family's, ``--only moe_combine`` times the MoE combine's cases,
-``--only train``
+``--only ssd_scan`` the SSD scan's, ``--only train``
 runs the train phase alone and ``--only dryrun`` the dryrun phase (no
 measured times); they print no result line.
 """
@@ -1196,6 +1196,7 @@ def _profile(fn, steps: int, watch: str = "", spans=()) -> dict:
            "device_events_per_step": sum(e.count for e in kernels) / steps,
            "top_kernels_ms_per_step": {
                e.key[:60]: dev(e) / 1e3 / steps for e in top},
+           "top_kernels_launches": {e.key[:60]: e.count for e in top},
            "launches_per_step": sum(
                e.count for e in events if e.key == "cudaLaunchKernel") /
            steps}
@@ -1663,9 +1664,16 @@ def _family_scan(arch: str, seed: int, checks: Checks) -> dict:
                   f"{arch} forward K5 launches {k5}, expected {want}")
     checks.expect(bool(torch.isfinite(logits.float()).all()),
                   f"{arch} forward logits not finite")
+    # the SSD scan kernel: one launch a Mamba2 layer (every zamba2 layer)
+    scans = launch_counts().get("ssd_scan", 0)
+    want_scans = cfg.n_layers if attention else 0
+    checks.expect(scans == want_scans,
+                  f"{arch} forward ssd_scan launches {scans}, expected "
+                  f"{want_scans}")
     out = {"forward_s": forward_s,
            "forward_tok_s": FAM_BATCH * FAM_SEQ / forward_s,
-           "forward_k5_launches": k5}
+           "forward_k5_launches": k5,
+           "forward_ssd_scan_launches": scans}
 
     def full_logits(c):
         return {"logits": build(c).forward(params, tokens)[0]}
@@ -3826,6 +3834,116 @@ def kernel_moe_combine(seed: int) -> dict:
                  "index_add_ms": main["index_add_ms"], "shapes": rows})
 
 
+#: the SSD scan at Granite 4.0-H's widths (128 heads of 64, N 128, one
+#: group, chunks of 256) in the long-prompt cell's batches of one prompt:
+#: its shortest and its longest
+SSD_SCAN_TOKENS = (8192, 32768)
+
+
+def ssd_scan_cases(seed: int) -> list:
+    """The SSD scan kernel against its plain version (bf16, on the same
+    inputs), both held to the plain version on the same values in
+    float32 (the kernel's y and final state each no further from it, by
+    the rms, than the plain version's), and timed beside it, at each of
+    SSD_SCAN_TOKENS; the inputs as the Mamba2 mixer makes them (x scaled
+    by dt, dt log-uniform in [0.001, 0.1] and A in [1, 16], Mamba2's init
+    ranges); the first case's kernels traced, ms a launch; the kernels'
+    registers and spills.
+    The bound is the benchmark's count of the scan's work
+    (``perfbench/yardstick/hybrid.py``)."""
+    import torch
+    from perfbench.yardstick import hybrid
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import kernel
+    from repro_torch.models import ssm
+    cfg = get_config("granite-4.0-h-small")
+    _, p, h, n = ssm.mamba2_dims(cfg)
+    chunk = cfg.ssm_chunk
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    rows = []
+    for s in SSD_SCAN_TOKENS:
+        dt = torch.empty((1, s, h), device=DEVICE).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=gen).exp()
+        a = torch.empty((h,), device=DEVICE).uniform_(
+            0.0, math.log(16.0), generator=gen).exp()
+        x = (torch.randn((1, s, h, p), generator=gen, device=DEVICE) *
+             dt[..., None]).to(torch.bfloat16)
+        B, C = (torch.randn((1, s, 1, n), generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        loga = -dt * a
+        args = (x, B, C, loga, chunk)
+        y, hf = kernel.ssd_scan_kernel(*args)
+        y2, hf2 = kernel.ssd_scan_kernel(*args)
+        bit_equal = torch.equal(y, y2) and torch.equal(hf, hf2)
+        del y2, hf2
+        py, ph = ssm.chunked_linear_scan(*args)
+        ry, rh = ssm.chunked_linear_scan(x.float(), B.float(), C.float(),
+                                         loga, chunk)
+        err = {"y_kernel": float((y.float() - ry).abs().max()),
+               "y_plain": float((py.float() - ry).abs().max()),
+               "y_kernel_rms": _rms(y, ry), "y_plain_rms": _rms(py, ry),
+               "y_kernel_vs_plain": float((y.float() - py.float()).abs()
+                                          .max()),
+               "h_kernel": float((hf - rh).abs().max()),
+               "h_plain": float((ph - rh).abs().max()),
+               "h_kernel_rms": _rms(hf, rh), "h_plain_rms": _rms(ph, rh),
+               "y_scale": float(ry.abs().max()),
+               "h_scale": float(rh.abs().max())}
+        del y, hf, py, ph, ry, rh
+        _free()
+        assert bit_equal, f"ssd_scan at {s} tokens: two calls differ"
+        assert err["y_kernel_rms"] <= err["y_plain_rms"] and \
+            err["h_kernel_rms"] <= err["h_plain_rms"], \
+            f"ssd_scan at {s} tokens: less precise than plain: {err}"
+        work = hybrid.ssd_scan(1, s, h, p, n, 1, chunk, 2)
+        ops, n_bytes = work["flops"], work["bytes"]
+        ms = timed_ms(lambda: kernel.ssd_scan_kernel(*args))
+        plain_ms = timed_ms(lambda: ssm.chunked_linear_scan(*args), reps=3,
+                            warmup=1)
+        bound_ms = max(n_bytes / HBM_BYTES_PER_S,
+                       ops / BF16_TC_OPS_PER_S) * 1e3
+        row = {"case": f"[1, {s}, {h}, {p}] N {n} chunk {chunk} bf16",
+               "s": s, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": ops / BF16_TC_OPS_PER_S * 1e3,
+               "roofline": bound_ms / ms, "bytes": n_bytes, "ops": ops,
+               "errors": err, "bit_equal": bit_equal,
+               "kernel_info": kernel.kernel_info()}
+        if not rows:
+            # ms a launch over the launches the trace holds, which may be
+            # fewer than the calls made
+            prof = _profile(lambda: kernel.ssd_scan_kernel(*args), 3,
+                            spans=("chunked_linear_scan",))
+            seen = prof["top_kernels_launches"]
+            row["traced_calls"] = prof["steps"]
+            row["traced_launches_by_kernel"] = seen
+            row["traced_ms_each_by_kernel"] = {
+                name: ms * prof["steps"] / seen[name]
+                for name, ms in prof["top_kernels_ms_per_step"].items()}
+        log("ssd_scan: " + json.dumps(row))
+        rows.append(row)
+        del x, B, C, loga, dt, args
+        _free()
+    return rows
+
+
+def kernel_ssd_scan(seed: int) -> dict:
+    """The kernels line's row of the SSD scan, from
+    :func:`ssd_scan_cases` (the cell's longest prompt is the row's own);
+    its launches are the zamba2 family's forward, filled in after the
+    families phase."""
+    rows = ssd_scan_cases(seed)
+    main = rows[-1]
+    return _row("SSD scan (Mamba2)", "triton",
+                "src/repro_torch/kernels/ssd_scan/kernel.py",
+                "none: the reference's scan is jitted XLA "
+                "(src/repro/models/ssm.py:31), first ported as plain torch",
+                0, main["errors"]["y_kernel"], main["ms"], main["plain_ms"],
+                main["bytes"], main["ops"], "bf16_tensor", None,
+                {"shape": main["case"], "shapes": rows})
+
+
 def only_k5(seed: int) -> list:
     """``--only k5``: K5 against its plain version, timed beside SDPA, at
     the lm phase's shape and each family's, in bf16 and float32
@@ -3900,8 +4018,8 @@ def main(argv=None) -> int:
     parser.add_argument("--report", default=None,
                         help="also write the full report as JSON here")
     parser.add_argument("--only", choices=["whatif", "stores", "k5",
-                                           "moe_combine", "train",
-                                           "dryrun"],
+                                           "moe_combine", "ssd_scan",
+                                           "train", "dryrun"],
                         default=None,
                         help="whatif: run that phase alone, without the "
                              "check of its launches; stores: time K1 and "
@@ -3909,6 +4027,8 @@ def main(argv=None) -> int:
                              "time K5 and SDPA at the lm and family shapes; "
                              "moe_combine: time the MoE combine beside its "
                              "plain version and index_add_ at the prefill "
+                             "cell's shapes; ssd_scan: time the SSD scan "
+                             "beside its plain version at the long-prompt "
                              "cell's shapes; "
                              "train: the train phase alone; dryrun: "
                              "the dryrun phase alone (no measured times).  "
@@ -3937,6 +4057,7 @@ def main(argv=None) -> int:
     names = {"stores": [n for n in build.SOURCES if n != "flash_attention"],
              "k5": ["flash_attention"],
              "moe_combine": ["moe_combine"],
+             "ssd_scan": [],
              "train": ["flash_attention"],
              "dryrun": ["flash_attention"]}.get(args.only,
                                                list(build.SOURCES))
@@ -3963,6 +4084,11 @@ def main(argv=None) -> int:
         return 0
     if args.only == "moe_combine":
         report["moe_combine"] = moe_combine_cases(args.seed)
+        _write_report(args.report, report)
+        log(_nvidia_smi())
+        return 0
+    if args.only == "ssd_scan":
+        report["ssd_scan"] = ssd_scan_cases(args.seed)
         _write_report(args.report, report)
         log(_nvidia_smi())
         return 0
@@ -4024,7 +4150,8 @@ def main(argv=None) -> int:
     kernels += [kernel_k5_backward(bwd_rows),
                 kernel_k5_backward_tf32x3(bwd_rows),
                 kernel_k5_tf32x3(args.seed),
-                kernel_moe_combine(args.seed)]
+                kernel_moe_combine(args.seed),
+                kernel_ssd_scan(args.seed)]
     report["kernels_phase_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -4173,6 +4300,12 @@ def main(argv=None) -> int:
     kernels[9]["launches_by_path"] = {
         f"granite-moe serve_batch: prefill + {FAM_DECODE} decode steps":
             granite["moe_combine_launches"]}
+    # the SSD scan: one launch a Mamba2 layer in the zamba2 family's
+    # forward (no grad)
+    zamba2 = fam["zamba2-1.2b"]
+    kernels[10]["launches"] = zamba2["forward_ssd_scan_launches"]
+    kernels[10]["launches_by_path"] = {
+        "zamba2-1.2b forward": zamba2["forward_ssd_scan_launches"]}
     report["total_s"] = time.perf_counter() - t_start
 
     smi = _nvidia_smi()

@@ -81,7 +81,7 @@ from repro_torch.core import memo
 from repro_torch.core.hardware import HardwareProfile
 from repro_torch.core.memo import MEMO_LOCK
 from repro_torch.core.models import _BASES, KNN_SENTINEL, _sigmoid
-from repro_torch.kernels import counter
+from repro_torch.kernels import build, counter
 from repro_torch.testing import faults
 
 # ---------------------------------------------------------------------------
@@ -478,31 +478,16 @@ _LAUNCHED: set = set()
 _FIRST_LAUNCH_LOCK = threading.Lock()
 
 
-def _libdevice():
-    """Triton's handle on CUDA's libdevice (precise ``expf``/``logf``);
-    its import path moved between Triton releases."""
-    try:
-        from triton.language.extra import libdevice
-        return libdevice
-    except ImportError:
-        pass
-    try:
-        from triton.language.extra.cuda import libdevice
-        return libdevice
-    except ImportError:
-        import triton.language as tl
-        return tl.math
-
-
 @functools.lru_cache(maxsize=None)
 def _k0_kernel():
     """Build the Triton kernel (first use only: importing this module
     must not need Triton).  The kernel body resolves ``tl`` and ``_ld``
     through this module's globals, which is where Triton looks them up."""
+    build.use_triton_cache()
     import triton
     import triton.language as tl
     globals()["tl"] = tl
-    globals()["_ld"] = _libdevice()
+    globals()["_ld"] = build.triton_libdevice()
 
     @triton.jit(do_not_specialize=["n_w", "stride_w", "n_seg"])
     def bank_score_kernel(kinds_ptr, lin_w_ptr, lin_y0_ptr, sig_c_ptr,

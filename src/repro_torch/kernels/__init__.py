@@ -6,12 +6,15 @@ PyTorch path the wrapper takes for CPU tensors.  A run can therefore show
 that a code path really went through the kernels: reset the counters,
 drive the path, read :func:`launch_counts`.  They count whether or not
 a profiler records; the program's spans and tallies, which count only
-while one does, are in :mod:`repro_torch.tracing`.
+while one does, are in :mod:`repro_torch.tracing`.  The kernels have no
+backward: a model calls one only where :func:`records_grad` is false.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict
+
+import torch
 
 
 class LaunchCounter:
@@ -61,3 +64,9 @@ def reset_launch_counts() -> None:
         counters = list(_COUNTERS.values())
     for c in counters:
         c.reset()
+
+
+def records_grad(*xs: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``xs`` now: the hand-written
+    kernels, which have no backward, run only where it does not."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)

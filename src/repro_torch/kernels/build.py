@@ -35,6 +35,10 @@ SOURCES = {"sorted_search": "sorted_search.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: where Triton keeps the kernels it compiles: beside the nvcc libraries,
+#: so that a checkout's later processes find them compiled
+TRITON_CACHE = BUILD_DIR.parent / "triton"
+
 _BUILD_LOCK = threading.Lock()
 
 
@@ -102,6 +106,28 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 def library(name: str) -> ctypes.CDLL:
     """Library ``name``, built first if needed, loaded once per process."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def use_triton_cache() -> None:
+    """Point Triton's cache at :data:`TRITON_CACHE`, unless the
+    environment names one.  Call before Triton compiles."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE))
+
+
+def triton_libdevice():
+    """Triton's handle on CUDA's libdevice (precise ``expf``, ``logf``);
+    its import path moved between Triton releases."""
+    try:
+        from triton.language.extra import libdevice
+        return libdevice
+    except ImportError:
+        pass
+    try:
+        from triton.language.extra.cuda import libdevice
+        return libdevice
+    except ImportError:
+        import triton.language as tl
+        return tl.math
 
 
 def check(status: int, kernel: str) -> None:

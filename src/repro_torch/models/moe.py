@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import records_grad
 from repro_torch.kernels.moe_combine.ops import moe_combine
 from repro_torch.models.layers import normal
 from repro_torch.parallel import ctx
@@ -128,10 +129,6 @@ def combine_scatter(out: torch.Tensor, combine_w: torch.Tensor,
         0, token_ids.reshape(-1), flat_out)
 
 
-def _records_grad(*xs: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
-
-
 def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss). Capacity-dropped tokens pass through
@@ -177,7 +174,7 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ArchConfig
         # combine: the expert outputs weighted by the router gates, by
         # token (the kernel) or by slot (the scatter-add; see the module)
         def combine(out, combine_w, gate_idx, ids, gm):
-            if out.is_cuda and not _records_grad(out, combine_w):
+            if out.is_cuda and not records_grad(out, combine_w):
                 y = moe_combine(out, combine_w, gate_idx, ids, gm)
             else:
                 y = combine_scatter(out, combine_w, ids, t)

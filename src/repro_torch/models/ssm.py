@@ -5,10 +5,16 @@ The reference runs these as jitted XLA with no Pallas kernel, so the port
 runs them as plain torch: ``lax.scan`` becomes a Python loop (over chunk
 states in :func:`chunked_linear_scan`, over time in the sLSTM).  Dtype
 casts mirror the reference's: decays and chunk states in float32, the
-intra-chunk matrix formed in float32 and cast to the input's dtype.  The
-scans carry spans (``chunked_linear_scan``, ``slstm_scan``; see
-``repro_torch/tracing.py``) so a trace can read their device time, and so
-does each Mamba2 mixer (``mamba2``, from ``in_proj`` to ``out_proj``).
+intra-chunk matrix formed in float32 and cast to the input's dtype.  One
+exception: a Mamba2 mixer that autograd does not record (serving) takes
+its scan from the ``ssd_scan`` op (``kernels/ssd_scan``), which runs the
+kernel on CUDA tensors, keeping those casts or more precision, and
+:func:`chunked_linear_scan` on the CPU; a recorded forward and the mLSTM
+call :func:`chunked_linear_scan` themselves.
+The scans carry spans (``chunked_linear_scan``, one a call on either
+route, and ``slstm_scan``; see ``repro_torch/tracing.py``) so a trace can
+read their device time, and so does each Mamba2 mixer (``mamba2``, from
+``in_proj`` to ``out_proj``).
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch import runtime, tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import records_grad
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import normal, rmsnorm
 from repro_torch.parallel import ctx
 
@@ -112,6 +120,17 @@ def chunked_linear_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                 b, nc, chunk, h, p) * w_in.to(x.dtype)[..., None]
         y = (y_intra + y_inter).reshape(b, s_pad, h, p)[:, :s]
         return y, hc
+
+
+def mamba2_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                loga: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's scan, :func:`chunked_linear_scan`'s contract: the
+    ``ssd_scan`` op where autograd does not record (serving; the kernel on
+    CUDA tensors), else the plain version, which autograd can record."""
+    if not records_grad(x, B, C, loga):
+        return ssd_scan(x, B, C, loga, chunk)
+    return chunked_linear_scan(x, B, C, loga, chunk)
 
 
 def linear_scan_step(h: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
@@ -212,9 +231,8 @@ def _mamba2_mix(cfg: ArchConfig, z, xin, Bv, Cv, dt, *weights):
     dt, loga = _mamba2_dt(params, dt)                       # [b,s,h]
     xh = xin.reshape(b, s, h, hd) * dt[..., None].to(dtype)
     # one group: every head reads the same B and C
-    y, h_state = chunked_linear_scan(xh, Bv[:, :, None, :].to(dtype),
-                                     Cv[:, :, None, :].to(dtype), loga,
-                                     cfg.ssm_chunk)
+    y, h_state = mamba2_scan(xh, Bv[:, :, None, :].to(dtype),
+                             Cv[:, :, None, :].to(dtype), loga, cfg.ssm_chunk)
     y = y + params["D_skip"][None, None, :, None].to(dtype) * \
         xin.reshape(b, s, h, hd)
     y = y.reshape(b, s, d_in) * F.silu(z)

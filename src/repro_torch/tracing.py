@@ -24,7 +24,10 @@ Spans and tallies of the program (name: where):
   ``moe.experts``, ``moe.combine``: ``models/moe.py``; tallies
   ``moe.assigned`` (token-expert assignments) and ``moe.kept``
   (assignments a capacity slot took).
-* ``chunked_linear_scan``, ``slstm_scan``: ``models/ssm.py``.
+* ``chunked_linear_scan``: the chunked scan, one a call on either of its
+  routes: ``models/ssm.py``'s plain version, or the ``ssd_scan`` kernel's
+  wrapper (``kernels/ssd_scan/kernel.py``) around its three launches.
+* ``slstm_scan``: ``models/ssm.py``.
 """
 from __future__ import annotations
 

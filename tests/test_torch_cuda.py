@@ -868,13 +868,38 @@ def test_family_forward_on_the_card_matches_cpu(cuda, arch):
     """Each family's smoke config in float32 compute with flash
     attention: the forward on the card (K5) against the same weights on
     the CPU (K5's plain version), to the LM tolerance of
-    tests/test_torch_lm.py (1e-4)."""
+    tests/test_torch_lm.py (1e-4).  zamba2's smoke state size (N 16) is
+    one the SSD scan kernel does not take, so its card forward records
+    grad, which keeps the plain scan on the card."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import build
-    from repro_torch.models.convert import tree_to
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
                               attn_impl="flash")
+    _family_forward_on_the_card(cuda, cfg, record_grad=cfg.family == "hybrid")
+
+
+def test_hybrid_forward_on_the_card_runs_the_ssd_scan(cuda):
+    """zamba2's smoke config with a state size the SSD scan kernel takes
+    (N 64), float32 compute: the card forward, not recording grad, scans
+    with the kernel, one launch a Mamba2 layer, and matches the CPU's
+    plain scan to the LM tolerance."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
+                              compute_dtype="float32", attn_impl="flash",
+                              ssm_state=64)
+    _family_forward_on_the_card(cuda, cfg, record_grad=False)
+    assert launch_counts().get("ssd_scan", 0) == cfg.n_layers
+
+
+def _family_forward_on_the_card(cuda, cfg, record_grad):
+    """The forward of ``cfg`` on the card (its parameters requiring grad,
+    recorded, when ``record_grad``) against the same weights on the CPU;
+    K5's launches counted from the card forward alone."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.models import build
+    from repro_torch.models.convert import tree_to
+    from repro_torch.models.hybrid import n_shared_applications
     model = build(cfg)
     params = model.init(0, device="cpu")
     rng = np.random.default_rng(1)
@@ -889,16 +914,22 @@ def test_family_forward_on_the_card_matches_cpu(cuda, arch):
                              embeds=emb)[0]
 
     want = run("cpu", params)
+    on_card = tree_to(params, cuda)
+    if record_grad:
+        for leaf in tree_leaves(on_card):
+            if torch.is_tensor(leaf) and leaf.is_floating_point():
+                leaf.requires_grad_(True)
     reset_launch_counts()
-    got = run(cuda, tree_to(params, cuda))
+    with torch.set_grad_enabled(record_grad):
+        got = run(cuda, on_card)
     torch.cuda.synchronize()
-    from repro_torch.models.hybrid import n_shared_applications
     attention = {"moe": cfg.n_layers, "vlm": cfg.n_layers,
                  "audio": cfg.n_encoder_layers + 2 * cfg.n_layers,
                  "hybrid": n_shared_applications(cfg), "ssm": 0}
     assert launch_counts().get("flash_attention", 0) == \
         attention[cfg.family]
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.detach().cpu(), want, rtol=1e-4,
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
